@@ -1,0 +1,323 @@
+"""Chip smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
+``open3d_slam_torch`` from beside this file; it imports nothing of JAX or of
+``open3d_slam_tpu``).  In order it:
+
+  1. prints the card's name and power limit (``nvidia-smi``) and the CUDA
+     version;
+  2. builds every hand-written kernel from ``open3d_slam_torch/csrc`` (one
+     ``nvcc`` per source, started together);
+  3. replays the simulated ``vlp16_yard_circle`` sequence through
+     ``SlamWrapper.process_scan_pipelined`` on the card, at the full
+     ``velodyne_puck16`` capacities with loop closures off, with every
+     kernel's launch count set to 0 just before and read just after, and
+     checks the trajectory against the simulator's ground truth (ATE);
+  4. replays the first scans once more in sequential mode and checks that
+     the pipelined and sequential poses agree;
+  5. holds each kernel against its plain PyTorch version on the card, on the
+     inputs the replay last gave it at each of its main-path shapes, and
+     times both next to the least time the card could take (the bound);
+  6. prints a ``kernels`` JSON line, the card line, and last the device JSON.
+
+It exits non-zero, and prints no result line, on any failure, without a
+card, or when run outside the repository.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import sys
+import time
+
+ATE_LIMIT_M = 0.15          # trajectory error allowed against ground truth
+SEQUENCE = "vlp16_yard_circle"
+N_SKIP = 5                  # clouds the reference skips; used as warmup
+N_DETERMINISM = 10          # scans replayed again in sequential mode
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of device clock: longer than any queueing
+
+
+def fail(msg: str):
+    print(f"CHIP SMOKE FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` launches, each between two
+    CUDA events, after one warm-up launch.  The launches queue up behind a
+    device-side sleep, so the events time the device work alone and not the
+    host's Python between launches."""
+    import statistics
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class Recorder:
+    """Stands in for a kernel wrapper during the replay and keeps, for each
+    launch key (kernel, shape) the wrapper counted, the last inputs it
+    launched on.  It counts nothing itself: the launch counts are the
+    wrappers' own, in ``cuda_build.launches``."""
+
+    def __init__(self, cuda_build, module, name):
+        self.cuda_build, self.module, self.name = cuda_build, module, name
+        self.wrapper = getattr(module, name)
+        self.inputs = {}
+
+    def __call__(self, *args, **kwargs):
+        before = dict(self.cuda_build.launches)
+        out = self.wrapper(*args, **kwargs)
+        for key, n in self.cuda_build.launches.items():
+            if n != before.get(key, 0):
+                self.inputs[key] = (args, kwargs)
+        return out
+
+    def install(self):
+        setattr(self.module, self.name, self)
+
+    def remove(self):
+        setattr(self.module, self.name, self.wrapper)
+
+
+GICP_TOL = 1e-5     # Gram entry vs sqrt(|G_ii||G_jj|); d2 sum vs itself
+MOMENTS_TOL = 1e-5  # moment vs the sum of |feature| over its neighbours
+
+
+def gicp_entry(cuda_gicp, shape, n_launch, args, kwargs):
+    import torch
+    q_pts, q_mask_f, q_cov6, td, tv, r2 = args[:6]
+    t_aabb = kwargs.get("t_aabb", args[6] if len(args) > 6 else None)
+    out_k = cuda_gicp.gicp_normal_eq(*args, **kwargs)
+    out_p = cuda_gicp.gicp_normal_eq_plain(q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb)
+    torch.cuda.synchronize()
+    n_in_k, n_in_p = int(out_k[0, 7, 0].item()), int(out_p[0, 7, 0].item())
+    dis = cuda_gicp.plain_disagreement(out_k, out_p)
+    ok = (dis["n_in_equal"] and dis["rest_equal"] and dis["gram"] <= GICP_TOL
+          and dis["d2s"] <= GICP_TOL)
+    ms = time_ms(lambda: cuda_gicp.gicp_normal_eq(*args, **kwargs), 20)
+    plain = time_ms(lambda: cuda_gicp.gicp_normal_eq_plain(
+        q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb), 3)
+    b, m, n = shape
+    # Pairs the exact AABB skip leaves to sweep, at the kernel's (128-query
+    # block, 256-target tile) granularity: the work this data needs.
+    if t_aabb is not None and m % 128 == 0:
+        qb = q_pts[0].reshape(-1, 128, 3)
+        qv = q_mask_f.reshape(-1, 128, 1) > 0
+        qmin = torch.where(qv, qb, torch.full_like(qb, 3e38)).min(1).values
+        qmax = torch.where(qv, qb, torch.full_like(qb, -3e38)).max(1).values
+        gap = torch.clamp(torch.maximum(t_aabb[None, :, 0:3] - qmax[:, None],
+                                        qmin[:, None] - t_aabb[None, :, 3:6]), min=0)
+        swept = int(((gap * gap).sum(-1) <= r2.reshape(())).sum().item())
+        pairs = swept * 128 * cuda_gicp.TILE_N
+    else:
+        pairs = b * m * n
+    n_valid = int((q_mask_f > 0).sum().item())
+    ops = pairs * 8 + n_valid * 200      # 8 flops per distance; ~200 per row
+    n_bytes = 4 * (m * (3 + 1 + 6) + n * (9 + 1) + 8 * 128)
+    b_ms, b_by = bound_ms(n_bytes, ops)
+    print(f"K1 gicp_normal_eq {m}x{n}: n_in kernel {n_in_k} plain {n_in_p}, "
+          f"padding equal {dis['rest_equal']}, Gram err {dis['gram']:.3e} of "
+          f"sqrt(|G_ii||G_jj|), d2 sum rel err {dis['d2s']:.3e} (tol "
+          f"{GICP_TOL:g} each), max abs err {dis['max_abs_err']:.3e}, "
+          f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}; {pairs} of {m * n} pairs swept)")
+    return ok, {"name": f"gicp_normal_eq[{m}x{n}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/gicp.cu",
+                "replaces": "open3d_slam_tpu/ops/pallas_gicp.py:166",
+                "launches": n_launch, "max_abs_err": dis["max_abs_err"], "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+
+
+def moments_entry(cuda_normals, shape, n_launch, args, kwargs):
+    import torch
+    out_k = cuda_normals.radius_moments_at(*args, **kwargs)
+    inputs = cuda_normals.moment_inputs(*args, **kwargs)
+    dis = cuda_normals.plain_disagreement(out_k, *inputs)
+    torch.cuda.synchronize()
+    ok = dis["count_equal"] and dis["moments"] <= MOMENTS_TOL
+    ms = time_ms(lambda: cuda_normals.radius_moments_at(*args, **kwargs), 20)
+    plain = time_ms(lambda: cuda_normals.radius_moments_plain(*inputs), 3)
+    m, n = shape
+    ops = m * n * 8 + dis["neighbours"] * 10   # distance test; 10 adds per neighbour
+    n_bytes = 4 * (m * (3 + 1 + 16) + n * (3 + 1 + 16))
+    b_ms, b_by = bound_ms(n_bytes, ops)
+    print(f"K2 radius_moments_at {m}x{n}: counts equal {dis['count_equal']} "
+          f"({dis['neighbours']} neighbours), moment err {dis['moments']:.3e} "
+          f"of the sum of |feature| (tol {MOMENTS_TOL:g}), max abs err "
+          f"{dis['max_abs_err']:.3e}, {ms:.4f} ms vs plain {plain:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return ok, {"name": f"radius_moments_at[{m}x{n}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/normals.cu",
+                "replaces": "open3d_slam_tpu/ops/pallas_normals.py:82",
+                "launches": n_launch, "max_abs_err": dis["max_abs_err"], "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        import numpy as np
+        from open3d_slam_torch.io import lidar_sim
+        from open3d_slam_torch.models.slam_wrapper import SlamWrapper
+        from open3d_slam_torch.ops import cuda_build, cuda_gicp, cuda_normals
+        from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
+    except ImportError as e:
+        fail(f"the port package is not beside this script ({e})")
+
+    # 1. Device record.
+    record = devmod.device_record()
+    name_power = record["name_power_limit"]
+    if not name_power:
+        fail("nvidia-smi did not report the card")
+    print(f"device: {json.dumps(record)}", flush=True)
+
+    # 2. Build every kernel, one nvcc per source, all at once.
+    t0 = time.perf_counter()
+    try:
+        logs = cuda_build.build_all()
+    except RuntimeError as e:
+        fail(f"kernel build: {e}")
+    print(f"built {', '.join(cuda_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    for src, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if re.search(r"registers|spill", line):
+                print(f"  ptxas[{src}]: {line.strip()}")
+
+    # 3. The main path: the simulated VLP-16 replay at full capacities.
+    params = cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
+    cap = params.capacities
+    print(f"config velodyne_puck16 (loop closures off): raw {cap.raw_scan}, "
+          f"processed {cap.processed_scan}, map patch {cap.map_patch}, "
+          f"submap {cap.submap_points}")
+    spec = lidar_sim.BENCHMARK_SEQUENCES[SEQUENCE]
+    t0 = time.perf_counter()
+    seq = lidar_sim.make_sim_sequence(spec, cache_dir="")
+    # The digest tells two runs that rendered different inputs (the host's
+    # math library rounds differently on another CPU) from two runs that
+    # computed differently on the same inputs.
+    digest = hashlib.sha1()
+    for s in seq.scans:
+        digest.update(np.ascontiguousarray(s, np.float32).tobytes())
+    print(f"rendered {SEQUENCE}: {len(seq.scans)} scans in "
+          f"{time.perf_counter() - t0:.1f} s, sha1 {digest.hexdigest()[:16]}",
+          flush=True)
+    slam = SlamWrapper(params, device="cuda")
+    slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+    torch.cuda.synchronize()
+
+    recorders = [Recorder(cuda_build, cuda_gicp, "gicp_normal_eq"),
+                 Recorder(cuda_build, cuda_normals, "radius_moments_at")]
+    for rec in recorders:
+        rec.install()
+    cuda_build.launches.clear()
+    devmod.host_syncs.count = 0
+    scans = list(zip(seq.scans, seq.timestamps))[N_SKIP:]
+    per_scan_ms = []
+    t_run = time.perf_counter()
+    for points, ts in scans:
+        t = time.perf_counter()
+        slam.process_scan_pipelined(points, ts)
+        per_scan_ms.append((time.perf_counter() - t) * 1e3)
+    slam.finish_processing()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_run
+    by_key = dict(cuda_build.launches)
+    launches = {rec.name: cuda_build.launch_total(rec.name) for rec in recorders}
+    syncs = devmod.host_syncs.count
+    for rec in recorders:
+        rec.remove()
+
+    times, poses = slam.get_trajectory()
+    if len(poses) != len(scans) or not all(np.isfinite(T).all() for T in poses):
+        fail(f"trajectory has {len(poses)} poses for {len(scans)} scans or "
+             "non-finite entries")
+    ate, rpe = evaluation.evaluate_trajectory(
+        seq.ground_truth, poses, gt_times=seq.timestamps, est_times=times,
+        rpe_delta=10)
+    n = len(scans)
+    pose_digest = hashlib.sha1(np.stack(poses).astype(np.float64).tobytes())
+    print(f"replay: {n} scans, per-scan p50 {np.median(per_scan_ms):.2f} ms, "
+          f"mean {wall_s * 1e3 / n:.2f} ms (wall {wall_s:.2f} s incl. finish), "
+          f"host syncs {syncs} = {syncs / n:.2f} per scan, "
+          f"poses sha1 {pose_digest.hexdigest()[:16]}")
+    print(f"ATE rmse {ate.rmse:.4f} m, mean {ate.mean:.4f} m, max {ate.max:.4f} m; "
+          f"RPE trans {rpe.trans_rmse:.4f} m, rot {rpe.rot_rmse_deg:.4f} deg")
+    print(f"health: {json.dumps(slam.get_health())}")
+    per_shape = {f"{k}{list(s)}": c for (k, s), c in sorted(by_key.items())}
+    print(f"kernel launches in the replay: {json.dumps(launches)}, by shape "
+          f"{json.dumps(per_shape)}", flush=True)
+    ok = True
+    if ate.rmse > ATE_LIMIT_M:
+        print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
+        ok = False
+    for rec in recorders:
+        if launches[rec.name] == 0:
+            print(f"{rec.name} was never launched", file=sys.stderr)
+            ok = False
+    if set(by_key) != {key for rec in recorders for key in rec.inputs}:
+        print("a launch key has no recorded inputs", file=sys.stderr)
+        ok = False
+
+    # 4. Pipelined and sequential replay agree.
+    seq_slam = SlamWrapper(params, device="cuda")
+    for points, ts in scans[:N_DETERMINISM]:
+        seq_slam.process_scan(points, ts)
+    _, seq_poses = seq_slam.get_trajectory()
+    dev = max(float(np.abs(a - b).max()) for a, b in
+              zip(poses[:N_DETERMINISM], seq_poses))
+    print(f"pipelined vs sequential, first {N_DETERMINISM} poses: max abs "
+          f"difference {dev:.3e} (tol 1e-6)")
+    if dev > 1e-6:
+        ok = False
+
+    # 5. Each kernel against its plain version, at each main-path shape.
+    entries = []
+    for rec, entry_fn, mod in ((recorders[0], gicp_entry, cuda_gicp),
+                               (recorders[1], moments_entry, cuda_normals)):
+        for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
+            good, entry = entry_fn(mod, shape, by_key[(name, shape)], args, kwargs)
+            ok = ok and good
+            entries.append(entry)
+    if not ok:
+        fail("see the messages above")
+
+    print(json.dumps({"kernels": entries}))
+    print(name_power)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

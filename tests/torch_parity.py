@@ -1,0 +1,103 @@
+"""Shared helpers of the port-vs-JAX parity tests (tests/test_torch_*.py).
+
+On the CPU the JAX package routes around its Pallas kernels (hash-probe
+normals, hash-grid NN, hash-sorted targets).  The port follows the kernel
+path on every device, so the parity tests hold it against the JAX kernel
+path: ``jax_kernel_path`` routes the JAX package's backend checks to "tpu",
+runs its Pallas kernels in interpret mode and makes its k-th-neighbour
+prepass exact.  Nothing of the JAX package is edited; the patches live only
+inside the context.
+"""
+import contextlib
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from open3d_slam_tpu.ops import pallas_gicp, pallas_normals
+from open3d_slam_tpu.utils import config as jcfg
+from open3d_slam_torch.utils import interop
+
+
+def _forcing(fn, **forced):
+    def call(*args, **kwargs):
+        return fn(*args, **{**kwargs, **forced})
+    return call
+
+
+@contextlib.contextmanager
+def jax_kernel_path():
+    """Run the JAX package on its TPU kernel path, on the CPU."""
+    patches = [
+        (jax, "default_backend", lambda: "tpu"),
+        (pallas_gicp, "gicp_normal_eq",
+         _forcing(pallas_gicp.gicp_normal_eq, interpret=True)),
+        (pallas_normals, "radius_moments_at",
+         _forcing(pallas_normals.radius_moments_at, interpret=True)),
+        (pallas_normals, "radius_moments",
+         _forcing(pallas_normals.radius_moments, interpret=True)),
+        (pallas_normals, "kth_neighbor_d2_at",
+         _forcing(pallas_normals.kth_neighbor_d2_at, exact=True)),
+        (pallas_normals, "kth_neighbor_d2",
+         _forcing(pallas_normals.kth_neighbor_d2, exact=True)),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    # Traces made on the CPU route must not be reused under the patches.
+    jax.clear_caches()
+    try:
+        for mod, name, new in patches:
+            setattr(mod, name, new)
+        yield
+    finally:
+        for mod, name, old in saved:
+            setattr(mod, name, old)
+        jax.clear_caches()
+
+
+class JaxScores:
+    """The uniform downsample scores a JAX owner draws from ``PRNGKey(seed)``
+    (split once per preprocess call), handed to the port's owner as its
+    ``draw_scores``: torch cannot reproduce ``jax.random``."""
+
+    def __init__(self, seed: int):
+        self.key = jax.random.PRNGKey(seed)
+
+    def __call__(self, n: int) -> torch.Tensor:
+        self.key, sub = jax.random.split(self.key)
+        return torch.from_numpy(np.array(jax.random.uniform(sub, (n,))))
+
+
+def small_jax_params(ratio: float = 1.0) -> jcfg.SlamParameters:
+    """GICP for both registrations, loop closures and the dense map off, at
+    small capacities (the shape of tests/test_async_and_regtypes.py)."""
+    p = jcfg.SlamParameters()
+    p.capacities.raw_scan = 4096
+    p.capacities.processed_scan = 2048
+    p.capacities.submap_points = 16384
+    p.capacities.map_patch = 4096
+    for o in (p.odometry, p.mapper):
+        o.scan_processing.voxel_size = 0.4
+        o.scan_processing.down_sampling_ratio = ratio
+        o.scan_matcher.icp.max_correspondence_distance = 1.0
+        o.scan_matcher.icp.max_num_iter = 12
+        o.scan_matcher.icp.max_distance_knn = 1.2
+        o.scan_matcher.icp.knn = 10
+    p.odometry.scan_matcher.reg_type = "GeneralizedIcp"
+    p.mapper.scan_matcher.scan_to_map_reg_type = "GeneralizedIcp"
+    p.mapper.map_builder.map_voxel_size = 0.4
+    p.mapper.is_build_dense_map = False
+    p.mapper.is_attempt_loop_closures = False
+    p.mapper.is_print_timing_statistics = False
+    return p
+
+
+def to_torch_params(p: jcfg.SlamParameters):
+    return interop.params_from_dict(dataclasses.asdict(p))
+
+
+def pose_errors(a: np.ndarray, b: np.ndarray):
+    """(translation m, rotation rad) between two 4x4 poses."""
+    d = np.linalg.inv(a) @ b
+    cos = np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+    return float(np.linalg.norm(a[:3, 3] - b[:3, 3])), float(np.arccos(cos))
