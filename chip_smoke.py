@@ -12,15 +12,21 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      ``nvcc`` per source, started together);
   3. replays the simulated ``vlp16_yard_circle`` sequence through
      ``SlamWrapper.process_scan_pipelined`` on the card, at the full
-     ``velodyne_puck16`` capacities with loop closures off, with every
-     kernel's launch count set to 0 just before and read just after, and
-     checks the trajectory against the simulator's ground truth (ATE);
+     ``velodyne_puck16`` capacities with loop closures and undistortion off
+     (the first slice's path), with every kernel's launch count set to 0
+     just before and read just after, and checks the trajectory against the
+     simulator's ground truth (ATE) and, on the same rendered scans, against
+     the poses that path has always given;
   4. replays the first scans once more in sequential mode and checks that
      the pipelined and sequential poses agree;
-  5. holds each kernel against its plain PyTorch version on the card, on the
-     inputs the replay last gave it at each of its main-path shapes, and
-     times both next to the least time the card could take (the bound);
-  6. prints a ``kernels`` JSON line, the card line, and last the device JSON.
+  5. replays the same scans with the full ``velodyne_puck16`` configuration
+     as users run it (loop closures on, undistortion on), counts reset
+     again, and checks that a closure was accepted and applied, the ATE,
+     and that every kernel of that path ran;
+  6. holds each kernel against its plain PyTorch version on the card, on the
+     inputs the replays last gave it at each of its shapes, and times both
+     next to the least time the card could take (the bound);
+  7. prints a ``kernels`` JSON line, the card line, and last the device JSON.
 
 It exits non-zero, and prints no result line, on any failure, without a
 card, or when run outside the repository.
@@ -38,6 +44,11 @@ ATE_LIMIT_M = 0.15          # trajectory error allowed against ground truth
 SEQUENCE = "vlp16_yard_circle"
 N_SKIP = 5                  # clouds the reference skips; used as warmup
 N_DETERMINISM = 10          # scans replayed again in sequential mode
+# The closures-off replay's poses on the scans this sequence renders to on
+# the card's host (both digests are printed; another host's math library
+# may render other scans, and then only the ATE is held).
+SCANS_SHA1 = "c7037044da48c50c"
+POSES_SHA1 = "3f6e40f8b6e44980"
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -179,6 +190,67 @@ def moments_entry(cuda_normals, shape, n_launch, args, kwargs):
                 "library_ms": None}
 
 
+def knn_entry(cuda_knn, shape, n_launch, args, kwargs):
+    import torch
+    got_i, got_d = cuda_knn.nn_argmin(*args, **kwargs)
+    inputs = cuda_knn.knn_inputs(*args, **kwargs)
+    want_i, want_d = cuda_knn.nn_argmin_plain(*inputs)
+    torch.cuda.synchronize()
+    same_inf = torch.equal(torch.isinf(got_d), torch.isinf(want_d))
+    fin = torch.isfinite(want_d)
+    err = float((got_d[fin] - want_d[fin]).abs().max()) if bool(fin.any()) else 0.0
+    ok = torch.equal(got_i, want_i) and same_inf and err == 0.0
+    ms = time_ms(lambda: cuda_knn.nn_argmin(*args, **kwargs), 20)
+    plain = time_ms(lambda: cuda_knn.nn_argmin_plain(*inputs), 3)
+    m, n = shape
+    # 9 flops a pair: the 3-term dot, |q|^2 + |t|^2, the 2x and the
+    # subtraction, and the compare.  Each input read once, each output
+    # written once.
+    b_ms, b_by = bound_ms(4 * (m * 4 + n * 4 + m * 2), 9.0 * m * n)
+    n_valid = int(torch.isfinite(inputs[3]).sum())
+    print(f"K3 nn_argmin {m}x{n}: indices equal {torch.equal(got_i, want_i)}, "
+          f"d2 max abs err {err:.3e} (exact required), {n_valid} valid targets, "
+          f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return ok, {"name": f"nn_argmin[{m}x{n}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/knn.cu",
+                "replaces": "open3d_slam_tpu/ops/pallas_knn.py:58",
+                "launches": n_launch, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+
+
+def replay(slam, scans, cuda_build, devmod):
+    """Pipelined replay of ``scans`` with the launch and sync counts set to
+    0 just before; returns per-scan ms, wall s (finish included), the
+    launch counts by (kernel, shape) and the host syncs."""
+    import torch
+    cuda_build.launches.clear()
+    devmod.host_syncs.count = 0
+    per_scan_ms = []
+    t_run = time.perf_counter()
+    for points, ts in scans:
+        t = time.perf_counter()
+        slam.process_scan_pipelined(points, ts)
+        per_scan_ms.append((time.perf_counter() - t) * 1e3)
+    slam.finish_processing()
+    torch.cuda.synchronize()
+    return (per_scan_ms, time.perf_counter() - t_run, dict(cuda_build.launches),
+            devmod.host_syncs.count)
+
+
+def check_trajectory(slam, seq, n_scans, evaluation):
+    """Poses finite and one per scan; returns (poses, ATE, RPE)."""
+    import numpy as np
+    times, poses = slam.get_trajectory()
+    if len(poses) != n_scans or not all(np.isfinite(T).all() for T in poses):
+        fail(f"trajectory has {len(poses)} poses for {n_scans} scans or "
+             "non-finite entries")
+    ate, rpe = evaluation.evaluate_trajectory(
+        seq.ground_truth, poses, gt_times=seq.timestamps, est_times=times,
+        rpe_delta=10)
+    return poses, ate, rpe
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -189,7 +261,7 @@ def main() -> int:
         import numpy as np
         from open3d_slam_torch.io import lidar_sim
         from open3d_slam_torch.models.slam_wrapper import SlamWrapper
-        from open3d_slam_torch.ops import cuda_build, cuda_gicp, cuda_normals
+        from open3d_slam_torch.ops import cuda_build, cuda_gicp, cuda_knn, cuda_normals
         from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
     except ImportError as e:
         fail(f"the port package is not beside this script ({e})")
@@ -213,12 +285,15 @@ def main() -> int:
             if re.search(r"registers|spill", line):
                 print(f"  ptxas[{src}]: {line.strip()}")
 
-    # 3. The main path: the simulated VLP-16 replay at full capacities.
+    # 3. The first slice's path: the simulated VLP-16 replay at full
+    # capacities, loop closures and undistortion off.
     params = cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
+    params.mapper.is_attempt_loop_closures = False
+    params.motion_compensation.is_undistort_input_cloud = False
     cap = params.capacities
-    print(f"config velodyne_puck16 (loop closures off): raw {cap.raw_scan}, "
-          f"processed {cap.processed_scan}, map patch {cap.map_patch}, "
-          f"submap {cap.submap_points}")
+    print(f"config velodyne_puck16 (loop closures and undistortion off): raw "
+          f"{cap.raw_scan}, processed {cap.processed_scan}, map patch "
+          f"{cap.map_patch}, submap {cap.submap_points}")
     spec = lidar_sim.BENCHMARK_SEQUENCES[SEQUENCE]
     t0 = time.perf_counter()
     seq = lidar_sim.make_sim_sequence(spec, cache_dir="")
@@ -228,64 +303,47 @@ def main() -> int:
     digest = hashlib.sha1()
     for s in seq.scans:
         digest.update(np.ascontiguousarray(s, np.float32).tobytes())
+    scans_sha1 = digest.hexdigest()[:16]
     print(f"rendered {SEQUENCE}: {len(seq.scans)} scans in "
-          f"{time.perf_counter() - t0:.1f} s, sha1 {digest.hexdigest()[:16]}",
-          flush=True)
+          f"{time.perf_counter() - t0:.1f} s, sha1 {scans_sha1}", flush=True)
     slam = SlamWrapper(params, device="cuda")
     slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
     torch.cuda.synchronize()
 
     recorders = [Recorder(cuda_build, cuda_gicp, "gicp_normal_eq"),
-                 Recorder(cuda_build, cuda_normals, "radius_moments_at")]
+                 Recorder(cuda_build, cuda_normals, "radius_moments_at"),
+                 Recorder(cuda_build, cuda_knn, "nn_argmin")]
     for rec in recorders:
         rec.install()
-    cuda_build.launches.clear()
-    devmod.host_syncs.count = 0
     scans = list(zip(seq.scans, seq.timestamps))[N_SKIP:]
-    per_scan_ms = []
-    t_run = time.perf_counter()
-    for points, ts in scans:
-        t = time.perf_counter()
-        slam.process_scan_pipelined(points, ts)
-        per_scan_ms.append((time.perf_counter() - t) * 1e3)
-    slam.finish_processing()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t_run
-    by_key = dict(cuda_build.launches)
-    launches = {rec.name: cuda_build.launch_total(rec.name) for rec in recorders}
-    syncs = devmod.host_syncs.count
-    for rec in recorders:
-        rec.remove()
-
-    times, poses = slam.get_trajectory()
-    if len(poses) != len(scans) or not all(np.isfinite(T).all() for T in poses):
-        fail(f"trajectory has {len(poses)} poses for {len(scans)} scans or "
-             "non-finite entries")
-    ate, rpe = evaluation.evaluate_trajectory(
-        seq.ground_truth, poses, gt_times=seq.timestamps, est_times=times,
-        rpe_delta=10)
     n = len(scans)
-    pose_digest = hashlib.sha1(np.stack(poses).astype(np.float64).tobytes())
-    print(f"replay: {n} scans, per-scan p50 {np.median(per_scan_ms):.2f} ms, "
-          f"mean {wall_s * 1e3 / n:.2f} ms (wall {wall_s:.2f} s incl. finish), "
-          f"host syncs {syncs} = {syncs / n:.2f} per scan, "
-          f"poses sha1 {pose_digest.hexdigest()[:16]}")
+    per_scan_ms, wall_s, by_key, syncs = replay(slam, scans, cuda_build, devmod)
+    poses, ate, rpe = check_trajectory(slam, seq, n, evaluation)
+    pose_digest = hashlib.sha1(np.stack(poses).astype(np.float64).tobytes()).hexdigest()[:16]
+    print(f"replay (closures off): {n} scans, per-scan p50 "
+          f"{np.median(per_scan_ms):.2f} ms, mean {wall_s * 1e3 / n:.2f} ms (wall "
+          f"{wall_s:.2f} s incl. finish), host syncs {syncs} = {syncs / n:.2f} per "
+          f"scan, poses sha1 {pose_digest}")
     print(f"ATE rmse {ate.rmse:.4f} m, mean {ate.mean:.4f} m, max {ate.max:.4f} m; "
           f"RPE trans {rpe.trans_rmse:.4f} m, rot {rpe.rot_rmse_deg:.4f} deg")
     print(f"health: {json.dumps(slam.get_health())}")
     per_shape = {f"{k}{list(s)}": c for (k, s), c in sorted(by_key.items())}
-    print(f"kernel launches in the replay: {json.dumps(launches)}, by shape "
-          f"{json.dumps(per_shape)}", flush=True)
+    print(f"kernel launches in the closures-off replay: {json.dumps(per_shape)}",
+          flush=True)
     ok = True
     if ate.rmse > ATE_LIMIT_M:
         print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
         ok = False
-    for rec in recorders:
-        if launches[rec.name] == 0:
+    for rec in recorders[:2]:
+        if cuda_build.launch_total(rec.name, by_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
-    if set(by_key) != {key for rec in recorders for key in rec.inputs}:
-        print("a launch key has no recorded inputs", file=sys.stderr)
+    if cuda_build.launch_total("nn_argmin", by_key):
+        print("nn_argmin ran with loop closures off", file=sys.stderr)
+        ok = False
+    if scans_sha1 == SCANS_SHA1 and pose_digest != POSES_SHA1:
+        print(f"poses sha1 {pose_digest} on scans {SCANS_SHA1}: the closures-off "
+              f"path gave {POSES_SHA1} before", file=sys.stderr)
         ok = False
 
     # 4. Pipelined and sequential replay agree.
@@ -299,13 +357,63 @@ def main() -> int:
           f"difference {dev:.3e} (tol 1e-6)")
     if dev > 1e-6:
         ok = False
+    del slam, seq_slam
 
-    # 5. Each kernel against its plain version, at each main-path shape.
+    # 5. The full configuration: loop closures and undistortion on.
+    full = cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
+    full.motion_compensation.is_undistort_input_cloud = True
+    if not full.mapper.is_attempt_loop_closures:
+        fail("configs/velodyne_puck16.yaml no longer turns loop closures on")
+    print(f"config velodyne_puck16 as users run it: loop closures on, undistortion "
+          f"on, feature cloud {full.capacities.feature_cloud}, pose graph "
+          f"{full.capacities.max_submaps} nodes / {full.capacities.max_constraints} "
+          "edges", flush=True)
+    slam = SlamWrapper(full, device="cuda")
+    slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+    torch.cuda.synchronize()
+    per_scan_ms, wall_s, full_key, syncs = replay(slam, scans, cuda_build, devmod)
+    poses, ate, rpe = check_trajectory(slam, seq, n, evaluation)
+    health = slam.get_health()
+    q = np.percentile(per_scan_ms, [50, 99])
+    print(f"replay (full configuration): {n} scans, per-scan p50 {q[0]:.2f} ms, "
+          f"p99 {q[1]:.2f} ms, max {max(per_scan_ms):.2f} ms, mean "
+          f"{wall_s * 1e3 / n:.2f} ms (wall {wall_s:.2f} s incl. finish), host "
+          f"syncs {syncs} = {syncs / n:.2f} per scan")
+    print(f"ATE rmse {ate.rmse:.4f} m, mean {ate.mean:.4f} m, max {ate.max:.4f} m; "
+          f"RPE trans {rpe.trans_rmse:.4f} m, rot {rpe.rot_rmse_deg:.4f} deg")
+    print(f"health: {json.dumps(health)}")
+    per_shape = {f"{k}{list(s)}": c for (k, s), c in sorted(full_key.items())}
+    print(f"kernel launches in the full replay: {json.dumps(per_shape)}", flush=True)
+    for rec in recorders:
+        rec.remove()
+    if health["n_loop_closures_accepted"] < 1:
+        print("no loop closure was accepted", file=sys.stderr)
+        ok = False
+    if health["n_optimizations_applied"] < 1:
+        print("no optimised pose graph was applied", file=sys.stderr)
+        ok = False
+    if ate.rmse > ATE_LIMIT_M:
+        print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
+        ok = False
+    for rec in recorders:
+        if cuda_build.launch_total(rec.name, full_key) == 0:
+            print(f"{rec.name} was never launched", file=sys.stderr)
+            ok = False
+    if set(by_key) | set(full_key) != {key for rec in recorders for key in rec.inputs}:
+        print("a launch key has no recorded inputs", file=sys.stderr)
+        ok = False
+
+    # 6. Each kernel against its plain version, at each of its shapes.  The
+    # launches are those of the full replay (the closures-off replay's for a
+    # shape only it ran).
     entries = []
     for rec, entry_fn, mod in ((recorders[0], gicp_entry, cuda_gicp),
-                               (recorders[1], moments_entry, cuda_normals)):
+                               (recorders[1], moments_entry, cuda_normals),
+                               (recorders[2], knn_entry, cuda_knn)):
         for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
-            good, entry = entry_fn(mod, shape, by_key[(name, shape)], args, kwargs)
+            key = (name, shape)
+            good, entry = entry_fn(mod, shape, full_key.get(key, by_key.get(key, 0)),
+                                   args, kwargs)
             ok = ok and good
             entries.append(entry)
     if not ok:

@@ -7,7 +7,8 @@ ground truth.  Runs on ``cuda`` unless ``--device cpu`` is given.
 
 Usage:
   python -m open3d_slam_torch.cli.mapping --sim vlp16_yard_circle
-      [--device cuda|cpu] [--max-scans N] [--param <yaml>] [--eval-json PATH]
+      [--device cuda|cpu] [--max-scans N] [--param <yaml>] [--undistort]
+      [--eval-json PATH]
   python -m open3d_slam_torch.cli.mapping --synthetic N --device cpu
 """
 from __future__ import annotations
@@ -39,6 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-scans", type=int, default=0,
                     help="replay at most this many scans of the sequence")
     ap.add_argument("--param", help="YAML/JSON parameter override file")
+    ap.add_argument("--undistort", action="store_true",
+                    help="enable constant-velocity motion compensation")
     ap.add_argument("--eval-json", metavar="PATH",
                     help="write ATE/RPE/RTF metrics as JSON")
     ap.add_argument("--no-pipeline", action="store_true",
@@ -109,6 +112,8 @@ def main(argv=None) -> int:
             ground_truth=seq.ground_truth[:args.max_scans])
 
     params = load_params(args.param)
+    if args.undistort:
+        params.motion_compensation.is_undistort_input_cloud = True
     slam = SlamWrapper(params, device=device)
     t0 = time.time()
     slam.warmup(scans=seq.scans[:SKIP_FIRST_N_POINT_CLOUDS],

@@ -1,4 +1,5 @@
-"""Where a scan's time goes on the card: a profiled replay of the VLP-16 slice.
+"""Where a scan's time goes on the card: a profiled replay of the VLP-16
+configuration as users run it (loop closures and undistortion on).
 
     python -m open3d_slam_torch.cli.profile_replay
 
@@ -16,7 +17,11 @@ capacities, then measures the next ``MEASURED_SCANS`` scans twice:
 
 Needs a CUDA card.  Stages (nested ones are part of their parent):
 odometry.preprocess > normals; odometry.register > gicp; mapper.preprocess >
-normals; mapper.patch_prepare; mapper.register > gicp; submap.insert.
+normals; mapper.patch_prepare; mapper.register > gicp; submap.insert;
+closure.features (features and odometry constraints of a finished submap) >
+normals, knn; closure.job (one phase of the loop-closure job, with the
+pose-graph solve when a closure is accepted) > gicp, knn.  A closure stage
+appears only in windows where a submap finishes.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from open3d_slam_torch.models.cloud_registration import CloudRegistrationStrateg
 from open3d_slam_torch.models.odometry import LidarOdometry
 from open3d_slam_torch.models.slam_wrapper import SlamWrapper
 from open3d_slam_torch.models.submap import Submap
-from open3d_slam_torch.ops import cuda_gicp, cuda_normals
+from open3d_slam_torch.ops import cuda_gicp, cuda_knn, cuda_normals
 from open3d_slam_torch.utils import config as cfg, device as devmod
 
 WARM_SCANS = 40       # the passes then measure scans 40-69 and 70-99
@@ -82,6 +87,7 @@ def main() -> int:
         return 1
     params = cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
     params.mapper.is_print_timing_statistics = False
+    params.motion_compensation.is_undistort_input_cloud = True
     seq = lidar_sim.make_sim_sequence(
         lidar_sim.BENCHMARK_SEQUENCES["vlp16_yard_circle"], cache_dir="")
     scans = list(zip(seq.scans, seq.timestamps))
@@ -101,6 +107,9 @@ def main() -> int:
     st.wrap(cuda_normals, "radius_moments_at", lambda *a: "normals.moments_kernel")
     st.wrap(cuda_gicp, "gicp_normal_eq",
             lambda q, *r: f"gicp_kernel[{q.shape[1]}x{r[2].shape[-1]}]")
+    st.wrap(cuda_knn, "nn_argmin", lambda q, t, *r: f"knn_kernel[{q.shape[0]}x{t.shape[1]}]")
+    st.wrap(SlamWrapper, "compute_features_if_ready", lambda *a: "closure.features")
+    st.wrap(SlamWrapper, "_advance_loop_closures", lambda *a: "closure.job")
     window = scans[WARM_SCANS:WARM_SCANS + MEASURED_SCANS]
     devmod.host_syncs.count = 0
     t = time.perf_counter()

@@ -4,8 +4,8 @@ Port of ``open3d_slam_tpu.models.buffers``.  Mirrors the reference's ``Transform
 (``src/TransformInterpolationBuffer.cpp:21-157``) and ``CircularBuffer``
 (``CircularBuffer.hpp:13-67``).  The engine runs a sequential,
 deterministic host pipeline (no worker threads racing), so these are plain
-Python structures.  (The loop-closure trajectory rewrites and the
-``ThreadSafeBuffer`` arrive with the loop-closure slice.)
+Python structures.  (The ``ThreadSafeBuffer`` of the async driver arrives
+with the multi-GPU slice.)
 """
 from __future__ import annotations
 
@@ -20,6 +20,14 @@ import torch
 from open3d_slam_torch.utils import se3
 
 T = TypeVar("T")
+
+
+class TimestampedTransform:
+    __slots__ = ("time", "transform")
+
+    def __init__(self, time: float, transform: np.ndarray):
+        self.time = time
+        self.transform = transform
 
 
 class TransformInterpolationBuffer:
@@ -41,6 +49,10 @@ class TransformInterpolationBuffer:
 
     def empty(self) -> bool:
         return not self._times
+
+    def latest_measurement(self, n_before_last: int = 0) -> TimestampedTransform:
+        return TimestampedTransform(self._times[-1 - n_before_last],
+                                    self._transforms[-1 - n_before_last])
 
     def push(self, time: float, transform: np.ndarray) -> bool:
         """Insert; returns False (ignored) if older than the newest entry."""

@@ -20,6 +20,7 @@ from open3d_slam_torch.models.buffers import TransformInterpolationBuffer
 from open3d_slam_torch.models.scan_to_map_registration import (
     ScanToMapIcp, scan_to_map_registration_factory)
 from open3d_slam_torch.models.submap_collection import SubmapCollection
+from open3d_slam_torch.utils import pointcloud as pclib
 from open3d_slam_torch.utils.config import MapperParameters
 from open3d_slam_torch.utils.device import to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
@@ -59,6 +60,22 @@ class Mapper:
         self.preprocessed_scan: Optional[PointCloud] = None
         self.n_refinement_skips = 0
         self.n_merge_skips_min_movement = 0
+
+    def loop_closure_update(self, correction: np.ndarray):
+        """``loopClosureUpdate`` (``Mapper.cpp:44-47``)."""
+        c = np.asarray(correction, np.float64)
+        self.map_to_range_sensor = c @ self.map_to_range_sensor
+        self.map_to_range_sensor_prev = c @ self.map_to_range_sensor_prev
+
+    def get_assembled_map_point_cloud(self) -> dict:
+        """All submap clouds concatenated (``getAssembledMapPointCloud``,
+        ``Mapper.cpp:183-208``) as numpy arrays."""
+        parts = [pclib.to_numpy(s.map_cloud) for s in self.submaps.submaps]
+        parts = [d for d in parts if d["points"].shape[0] > 0]
+        if not parts:
+            return {"points": np.zeros((0, 3), np.float32)}
+        return {k: np.concatenate([d[k] for d in parts if k in d], axis=0)
+                for k in parts[0]}
 
     def set_map_to_range_sensor_initial(self, T: np.ndarray):
         """``setMapToRangeSensorInitial`` (``Mapper.cpp:88-92``)."""

@@ -4,9 +4,11 @@ Port of the main-path parts of ``open3d_slam_tpu.models.submap_collection``
 (reference ``SubmapCollection.cpp:28-364``): scan insertion with the
 active-submap switch by radius / adjacency / occupancy-fitness revisit, the
 overlap-scan buffer replayed into a newly activated submap, the
-finished-submap queue and ``force_new_submap_creation``.  Feature
-computation and the pose-graph ``transform`` of the collection arrive with
-the loop-closure and pose-graph slices.
+finished-submap and loop-closure-candidate queues,
+``force_new_submap_creation``, feature computation for finished submaps
+(``computeFeatures``, :219-243), the adjacency update after a loop closure
+and the pose-graph ``transform`` with parent chaining for submaps the graph
+does not hold (:284-335).
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ VOXEL_EXPANSION_ADJACENCY_REVISITING = 2.5  # magic.hpp:15
 class TimestampedSubmapId(NamedTuple):
     submap_id: int
     time: float
+
+
+class OptimizedTransform(NamedTuple):
+    submap_id: int
+    dT: np.ndarray
 
 
 class ScanTimeTransform(NamedTuple):
@@ -59,10 +66,11 @@ def _occupancy_fitness(map_points: torch.Tensor, map_mask: torch.Tensor,
 
 class SubmapCollection:
     def __init__(self, params: MapperParameters, map_capacity: int = 262144,
-                 device="cuda"):
+                 feature_capacity: int = 8192, device="cuda"):
         self.params = params
         self.device = torch.device(device)
         self.map_capacity = map_capacity
+        self.feature_capacity = feature_capacity
         self.submaps: List[Submap] = []
         self.adjacency = AdjacencyMatrix()
         self.active_submap_idx = 0
@@ -73,6 +81,7 @@ class SubmapCollection:
         self.overlap_scans_buffer: deque = deque(
             maxlen=max(1, params.submaps.num_scans_overlap))
         self.finished_submaps_idxs: List[TimestampedSubmapId] = []
+        self.loop_closure_candidates_idxs: List[TimestampedSubmapId] = []
         self.last_finished_submap_idx: Optional[int] = None
         self._force_new_submap = False
         self.create_new_submap(self.map_to_range_sensor)
@@ -85,6 +94,17 @@ class SubmapCollection:
 
     def get_active_submap(self) -> Submap:
         return self.submaps[self.active_submap_idx]
+
+    def get_submap(self, idx: int) -> Submap:
+        return self.submaps[idx]
+
+    def pop_finished_submap_ids(self) -> List[TimestampedSubmapId]:
+        out, self.finished_submaps_idxs = self.finished_submaps_idxs, []
+        return out
+
+    def pop_loop_closure_candidates(self) -> List[TimestampedSubmapId]:
+        out, self.loop_closure_candidates_idxs = self.loop_closure_candidates_idxs, []
+        return out
 
     def get_total_num_points(self) -> int:
         if not self.submaps:
@@ -99,7 +119,8 @@ class SubmapCollection:
         submap_id = self._submap_id_counter
         self._submap_id_counter += 1
         s = Submap(submap_id, self.active_submap_idx, self.params,
-                   map_capacity=self.map_capacity, device=self.device)
+                   map_capacity=self.map_capacity,
+                   feature_capacity=self.feature_capacity, device=self.device)
         s.map_to_submap = np.asarray(map_to_submap, np.float64).copy()
         self.submaps.append(s)
         self.active_submap_idx = len(self.submaps) - 1
@@ -198,3 +219,43 @@ class SubmapCollection:
             empty_scan = pclib.empty(8, with_normals=True, device=self.device)
         self.insert_scan(empty_scan, empty_scan, self.map_to_range_sensor, self.timestamp)
         self._force_new_submap = False
+
+    def compute_features(self, finished_ids: List[TimestampedSubmapId]):
+        """``computeFeatures`` (``SubmapCollection.cpp:219-243``): features of
+        each finished submap, which then becomes a loop-closure candidate."""
+        for tid in finished_ids:
+            self.submaps[tid.submap_id].compute_features()
+            self.loop_closure_candidates_idxs.append(tid)
+
+    def update_adjacency_matrix(self, loop_closure_constraints):
+        for c in loop_closure_constraints:
+            self.adjacency.add_edge(c.source_submap_idx, c.target_submap_idx)
+            self.adjacency.mark_as_loop_closure_submap(c.source_submap_idx)
+            self.adjacency.mark_as_loop_closure_submap(c.target_submap_idx)
+
+    def transform(self, transform_increments: List[OptimizedTransform]):
+        """Apply the optimised pose-graph increments; a submap the graph does
+        not hold follows its nearest optimised ancestor
+        (``SubmapCollection.cpp:284-335``)."""
+        optimized = set()
+        by_id = {u.submap_id: u for u in transform_increments}
+        for u in transform_increments:
+            if u.submap_id < len(self.submaps):
+                self.submaps[u.submap_id].transform(u.dT)
+                optimized.add(u.submap_id)
+        to_update = [i for i in range(len(self.submaps)) if i not in optimized]
+        to_update_set = set(to_update)
+        for idx in to_update:
+            if not transform_increments:
+                break
+            current = idx
+            while True:
+                parent = self.submaps[current].parent_id
+                if parent not in to_update_set:
+                    if parent in by_id:
+                        self.submaps[idx].transform(by_id[parent].dT)
+                    break
+                if parent == current:
+                    raise RuntimeError("parent chain loop")
+                current = parent
+        self.overlap_scans_buffer.clear()

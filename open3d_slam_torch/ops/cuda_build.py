@@ -27,7 +27,7 @@ from open3d_slam_torch.utils.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gicp", "normals")
+SOURCES = ("gicp", "normals", "knn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,8 +40,11 @@ def count_launch(kernel: str, shape: Tuple[int, ...]):
     launches[(kernel, tuple(shape))] += 1
 
 
-def launch_total(kernel: str) -> int:
-    return sum(n for (k, _), n in launches.items() if k == kernel)
+def launch_total(kernel: str, counts: Optional[Dict] = None) -> int:
+    """Launches of ``kernel`` over all shapes, in ``counts`` (a copy of
+    ``launches`` taken earlier) or in ``launches`` itself."""
+    return sum(n for (k, _), n in (launches if counts is None else counts).items()
+               if k == kernel)
 
 
 def _lib_path(name: str) -> str:

@@ -38,6 +38,15 @@ def voxel_coords(points: torch.Tensor, voxel_size: float) -> torch.Tensor:
     return torch.floor(points / voxel_size).to(torch.int32)
 
 
+def hash_coords(coords: torch.Tensor) -> torch.Tensor:
+    """Additive large-prime spatial hash of int32 voxel coords -> int32, with
+    the JAX package's wrapping int32 arithmetic: computed in int64 and wrapped
+    to 32 bits, so the hashes (and a sort by them) are bit-equal to JAX's."""
+    c = coords.to(torch.int64)
+    h = c[..., 0] * 73856093 + c[..., 1] * 19349669 + c[..., 2] * 83492791
+    return (((h + 2 ** 31) & (2 ** 32 - 1)) - 2 ** 31).to(torch.int32)
+
+
 def pack_coords(coords: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """Exact int32 key of voxel ``coords`` relative to ``base`` (3,);
     out-of-region -> -1.  Linear: +-x -> +-E^2, +-y -> +-E, +-z -> +-1."""

@@ -68,15 +68,56 @@ class HostSyncCounter:
 host_syncs = HostSyncCounter()
 
 
+class Prefetched:
+    """Device tensors whose copy to the host was started without waiting
+    (``prefetch_to_host``): pinned host buffers filled by ``non_blocking``
+    copies, and a CUDA event recorded after them.  Pass it to ``to_host`` to
+    read the values; that pull waits for the event only, not for work queued
+    later on the stream.  On the CPU it just holds the tensors."""
+
+    def __init__(self, tensors):
+        self.shapes = [tuple(t.shape) for t in tensors]
+        self.event = None
+        if tensors and tensors[0].device.type == "cuda":
+            self.host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t.detach(), non_blocking=True)
+                self.host.append(h)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = [t.detach() for t in tensors]
+
+    def ready(self) -> bool:
+        """True once the copies have landed (a pull then costs nothing)."""
+        return self.event is None or self.event.query()
+
+
+def prefetch_to_host(*tensors) -> Prefetched:
+    """Start the device->host copy of ``tensors`` now; read them later with
+    ``to_host(prefetched)``."""
+    return Prefetched([t for t in tensors if t is not None])
+
+
 def to_host(*tensors):
-    """ONE counted blocking pull of ``tensors`` -> tuple of numpy arrays."""
+    """ONE counted blocking pull of ``tensors`` -> tuple of numpy arrays.
+    A ``Prefetched`` argument stands for its tensors, in order; it is read
+    from its host buffers once its event has completed."""
     host_syncs.count += 1
     if not tensors:
         return ()
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
-                      for t in tensors]).cpu().numpy()
+    live = [t for t in tensors if not isinstance(t, Prefetched)]
+    flat = (torch.cat([t.detach().reshape(-1).to(torch.float64)
+                       for t in live]).cpu().numpy() if live else None)
     out, off = [], 0
     for t in tensors:
+        if isinstance(t, Prefetched):
+            if t.event is not None:
+                t.event.synchronize()
+            out.extend(h.to(torch.float64).numpy().reshape(s)
+                       for h, s in zip(t.host, t.shapes))
+            continue
         n = t.numel()
         out.append(flat[off:off + n].reshape(tuple(t.shape)))
         off += n

@@ -1,7 +1,8 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions on the
-same card tensors, at the layouts the JAX signatures allow: one shared 2-D
-target or one target per batch element, with and without the tile skip,
-sizes that do not fill the last block or tile.
+"""Kernels K1, K2 and K3 on the card against their plain PyTorch versions on
+the same card tensors, at the layouts the JAX signatures allow: one shared
+2-D target or one target per batch element, with and without the tile skip,
+sizes that do not fill the last block or tile; for K3 also every target
+masked and exact ties.
 
 Marked ``cuda``: they skip without a CUDA card and ``nvcc``.  This file
 imports neither JAX nor the JAX package, so it runs on a card's machine that
@@ -16,13 +17,16 @@ another order, so each entry is held at its own scale (see
 ``plain_disagreement`` in each kernel module): a Gram entry (i, j) to 1e-5
 of sqrt(|G_ii| |G_jj|), the inlier d2 sum to 1e-5 of itself, a moment to
 1e-5 of the sum of |feature| over the same neighbours.  1e-5 is about a
-hundred float32 roundings of the entry's scale.
+hundred float32 roundings of the entry's scale.  K3 computes each distance
+with the plain version's operations in its order, so its indices and
+distances are equal, not close.
 """
 import numpy as np
 import pytest
 import torch
 
-from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_normals as tcn
+from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_knn as tk
+from open3d_slam_torch.ops import cuda_normals as tcn
 from open3d_slam_torch.ops import normals as tn
 from open3d_slam_torch.utils import pointcloud as tpc
 
@@ -122,3 +126,54 @@ def test_radius_moments_kernel_matches_plain_on_card(cuda_device, rng, m, n, per
     assert dis["count_equal"], dis
     assert dis["neighbours"] > 2 * m
     assert dis["moments"] <= 1e-5, dis
+
+
+def _knn_on_card(q, t, t2):
+    """K3 and its plain version on the same card tensors; the launch is
+    counted once."""
+    key = ("nn_argmin", (q.shape[0], t.shape[1]))
+    before = cuda_build.launches[key]
+    got = tk.nn_argmin(q, t, t2)
+    assert cuda_build.launches[key] == before + 1
+    want = tk.nn_argmin_plain(*tk.knn_inputs(q, t, t2))
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(4096, 16384), (1000, 3001), (32768, 65536)])
+def test_nn_argmin_kernel_matches_plain_on_card(cuda_device, rng, m, n):
+    """Random clouds with a fifth of the targets masked; the middle case
+    fills neither the last query block nor the last target tile."""
+    t = torch.from_numpy(rng.uniform(-20, 20, (n, 3)).astype(np.float32)).to(cuda_device)
+    q = torch.from_numpy(rng.uniform(-20, 20, (m, 3)).astype(np.float32)).to(cuda_device)
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.2).to(cuda_device)
+    t2 = torch.where(valid, tk.squared_norms(t), torch.full((), float("inf"), device=cuda_device))
+    (gi, gd), (wi, wd) = _knn_on_card(q, t.t().contiguous(), t2)
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    assert bool(valid[gi.long()].all())
+
+
+@pytest.mark.cuda
+def test_nn_argmin_kernel_all_masked_on_card(cuda_device, rng):
+    t = torch.from_numpy(rng.uniform(-5, 5, (777, 3)).astype(np.float32)).to(cuda_device)
+    q = torch.from_numpy(rng.uniform(-5, 5, (300, 3)).astype(np.float32)).to(cuda_device)
+    t2 = torch.full((777,), float("inf"), device=cuda_device)
+    (gi, gd), (wi, wd) = _knn_on_card(q, t.t().contiguous(), t2)
+    assert int(gi.abs().max()) == 0 and bool(torch.isinf(gd).all())
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.cuda
+def test_nn_argmin_kernel_breaks_ties_to_lowest_index_on_card(cuda_device):
+    """Every target repeated at three indices, the copies in different
+    tiles and splits: the lowest index wins, as in the Pallas kernel."""
+    base = torch.tensor([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0], [0.0, 3.0, 0.0],
+                         [0.0, 0.0, 3.0]], device=cuda_device)
+    t = torch.cat([base.repeat(700, 1), base.repeat(700, 1) + 100.0, base.repeat(700, 1)])
+    q = torch.tensor([[0.1, 0.0, 0.0], [2.9, 0.1, 0.0], [0.0, 2.8, 0.1],
+                      [0.0, 0.2, 2.9]], device=cuda_device).repeat(50, 1)
+    t2 = tk.squared_norms(t)
+    (gi, gd), (wi, wd) = _knn_on_card(q, t.t().contiguous(), t2)
+    assert gi[:4].tolist() == [0, 1, 2, 3]
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)

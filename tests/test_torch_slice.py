@@ -158,11 +158,22 @@ def test_interop_round_trips(rng):
 @pytest.mark.parametrize("flag", ["is_attempt_loop_closures", "is_build_dense_map",
                                   "is_undistort_input_cloud"])
 def test_wrapper_refuses_later_slices(flag):
+    """The flags the first slice refused.  The dense map is still refused.
+    Loop closures and undistortion are ported now and accepted; along the
+    closure path the ICP refinement of odometry constraints (point-to-plane
+    ICP, kernel K4) is still refused, naming the slice that brings it."""
     tp = to_torch_params(small_jax_params())
     owner = tp.motion_compensation if flag == "is_undistort_input_cloud" else tp.mapper
     setattr(owner, flag, True)
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        SlamWrapper(tp, device="cpu")
+    if flag == "is_build_dense_map":
+        with pytest.raises(NotImplementedError, match="later|slice"):
+            SlamWrapper(tp, device="cpu")
+        return
+    assert getattr(owner, flag) and SlamWrapper(tp, device="cpu").params is tp
+    if flag == "is_attempt_loop_closures":
+        tp.mapper.is_refine_odometry_constraints_between_submaps = True
+        with pytest.raises(NotImplementedError, match="localization slice"):
+            SlamWrapper(tp, device="cpu")
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -175,13 +186,24 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_packaged_configs_turn_loop_closures_off():
-    p = tcfg.load_parameters_from_file(tcfg.config_path("velodyne_puck16.yaml"))
-    assert not p.mapper.is_attempt_loop_closures
+    """The port no longer ships configs of its own that turn loop closures
+    off: ``config_path`` finds the repo's ``configs/``, whose VLP-16 and
+    default configurations turn them on, at the capacities of the first
+    slice.  A caller that wants them off sets the flag, as the replays of
+    this file do."""
+    path = tcfg.config_path("velodyne_puck16.yaml")
+    assert pathlib.Path(path).parent.name == "configs"
+    assert pathlib.Path(path).parent.parent.name != "open3d_slam_torch"
+    p = tcfg.load_parameters_from_file(path)
+    assert p.mapper.is_attempt_loop_closures
+    assert not p.motion_compensation.is_undistort_input_cloud
     assert (p.capacities.raw_scan, p.capacities.processed_scan,
             p.capacities.map_patch, p.capacities.submap_points) == (32768, 16384, 65536, 163840)
     assert p.odometry.scan_processing.down_sampling_ratio == 1.0
-    assert not tcfg.load_parameters_from_file(
+    assert tcfg.load_parameters_from_file(
         tcfg.config_path("default.yaml")).mapper.is_attempt_loop_closures
+    p.mapper.is_attempt_loop_closures = False
+    assert not SlamWrapper(p, device="cpu").params.mapper.is_attempt_loop_closures
 
 
 def test_mapping_cli_on_cpu(tmp_path, capsys):

@@ -14,8 +14,9 @@ import dataclasses
 import jax
 import numpy as np
 import torch
+from jax.experimental import pallas as pl
 
-from open3d_slam_tpu.ops import pallas_gicp, pallas_normals
+from open3d_slam_tpu.ops import pallas_gicp, pallas_knn, pallas_normals
 from open3d_slam_tpu.utils import config as jcfg
 from open3d_slam_torch.utils import interop
 
@@ -26,11 +27,23 @@ def _forcing(fn, **forced):
     return call
 
 
+class _InterpretedPallas:
+    """``jax.experimental.pallas`` with ``pallas_call`` forced to interpret
+    mode: ``pallas_knn.nn_argmin`` takes no ``interpret`` argument, so its
+    module's ``pl`` is swapped for this inside ``jax_kernel_path``."""
+
+    def __getattr__(self, name):
+        return getattr(pl, name)
+
+    pallas_call = staticmethod(_forcing(pl.pallas_call, interpret=True))
+
+
 @contextlib.contextmanager
 def jax_kernel_path():
     """Run the JAX package on its TPU kernel path, on the CPU."""
     patches = [
         (jax, "default_backend", lambda: "tpu"),
+        (pallas_knn, "pl", _InterpretedPallas()),
         (pallas_gicp, "gicp_normal_eq",
          _forcing(pallas_gicp.gicp_normal_eq, interpret=True)),
         (pallas_normals, "radius_moments_at",
@@ -66,6 +79,23 @@ class JaxScores:
     def __call__(self, n: int) -> torch.Tensor:
         self.key, sub = jax.random.split(self.key)
         return torch.from_numpy(np.array(jax.random.uniform(sub, (n,))))
+
+
+class JaxTriplets:
+    """The RANSAC triplet draws of a JAX ``PlaceRecognition`` (its
+    ``PRNGKey(7)``, split once per loop-closure job, then into one key per
+    padded candidate, each drawing ``randint((H, 3), 0, 2^30)``), handed to
+    the port's ``PlaceRecognition`` as its ``draw_triplets``."""
+
+    def __init__(self, seed: int = 7):
+        self.key = jax.random.PRNGKey(seed)
+
+    def __call__(self, k_padded: int, n_hypotheses: int) -> torch.Tensor:
+        self.key, sub = jax.random.split(self.key)
+        keys = jax.random.split(sub, k_padded)
+        draws = [np.array(jax.random.randint(k, (n_hypotheses, 3), 0, 1 << 30))
+                 for k in keys]
+        return torch.from_numpy(np.stack(draws).astype(np.int64))
 
 
 def small_jax_params(ratio: float = 1.0) -> jcfg.SlamParameters:
