@@ -23,10 +23,24 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      as users run it (loop closures on, undistortion on), counts reset
      again, and checks that a closure was accepted and applied, the ATE,
      and that every kernel of that path ran;
-  6. holds each kernel against its plain PyTorch version on the card, on the
-     inputs the replays last gave it at each of its shapes, and times both
+  6. localizes, through ``cli.localization.main`` as a VLP-16 user runs it,
+     the first scans of step 3 against the map of step 3's submap 0 (saved
+     as a PCD, the scans as a sequence folder) from step 3's first pose, and
+     checks every pose against step 3's;
+  7. global localization at the width of the JAX package's config 4
+     (``bench.py``'s ``bench_multistart_localization``): 1024 hypotheses on
+     a 32768-point structured scene, five planted 8192-point scans, each
+     localized within 0.5 m and 5 degrees;
+  8. replays the first scans of step 3 with point-to-plane ICP for both
+     registrations (the ``SlamParameters`` default) and checks the ATE;
+  9. holds each kernel against its plain PyTorch version on the card, on the
+     inputs the runs last gave it at each of its shapes, and times both
      next to the least time the card could take (the bound);
-  7. prints a ``kernels`` JSON line, the card line, and last the device JSON.
+  10. prints a ``kernels`` JSON line, the card line, and last the device
+      JSON.
+
+Steps 6 to 8 each set every launch count to 0 just before and read it just
+after, and fail if a kernel of their path did not run.
 
 It exits non-zero, and prints no result line, on any failure, without a
 card, or when run outside the repository.
@@ -53,6 +67,13 @@ POSES_SHA1 = "3f6e40f8b6e44980"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of device clock: longer than any queueing
+LOC_SCANS = 30              # scans localized against submap 0's map
+LOC_TOL_M, LOC_TOL_DEG = 0.10, 1.0
+GLOBAL_HYPOTHESES = 1024    # bench.py's config 4
+GLOBAL_MAP, GLOBAL_SCAN = 32768, 8192
+GLOBAL_SEEDS = (101, 102, 103, 104, 105)   # seed 100 warms up
+GLOBAL_TOL_M, GLOBAL_TOL_DEG = 0.5, 5.0
+P2L_SCANS = 100
 
 
 def fail(msg: str):
@@ -91,19 +112,22 @@ def bound_ms(n_bytes: float, n_ops: float):
 class Recorder:
     """Stands in for a kernel wrapper during the replay and keeps, for each
     launch key (kernel, shape) the wrapper counted, the last inputs it
-    launched on.  It counts nothing itself: the launch counts are the
-    wrappers' own, in ``cuda_build.launches``."""
+    launched on; keys in ``frozen`` keep theirs (a shape the replays ran
+    stays held at the replays' inputs when a later step runs it too).  It
+    counts nothing itself: the launch counts are the wrappers' own, in
+    ``cuda_build.launches``."""
 
     def __init__(self, cuda_build, module, name):
         self.cuda_build, self.module, self.name = cuda_build, module, name
         self.wrapper = getattr(module, name)
         self.inputs = {}
+        self.frozen = set()
 
     def __call__(self, *args, **kwargs):
         before = dict(self.cuda_build.launches)
         out = self.wrapper(*args, **kwargs)
         for key, n in self.cuda_build.launches.items():
-            if n != before.get(key, 0):
+            if n != before.get(key, 0) and key not in self.frozen:
                 self.inputs[key] = (args, kwargs)
         return out
 
@@ -115,6 +139,7 @@ class Recorder:
 
 
 GICP_TOL = 1e-5     # Gram entry vs sqrt(|G_ii||G_jj|); d2 sum vs itself
+P2L_TOL = 1e-5      # the same for K4
 MOMENTS_TOL = 1e-5  # moment vs the sum of |feature| over its neighbours
 
 
@@ -219,6 +244,143 @@ def knn_entry(cuda_knn, shape, n_launch, args, kwargs):
                 "library_ms": None}
 
 
+def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
+    import torch
+    inputs = cuda_icp.p2l_inputs(*args, **kwargs)
+    out_k = cuda_icp.p2l_normal_eq(*inputs)
+    out_p = cuda_icp.p2l_normal_eq_plain(*inputs)
+    torch.cuda.synchronize()
+    dis = cuda_icp.plain_disagreement(out_k, out_p)
+    ok = (dis["n_in_equal"] and dis["rest_equal"] and dis["gram"] <= P2L_TOL
+          and dis["d2s"] <= P2L_TOL)
+    ms = time_ms(lambda: cuda_icp.p2l_normal_eq(*inputs), 20)
+    plain = time_ms(lambda: cuda_icp.p2l_normal_eq_plain(*inputs), 3)
+    b, m, n = shape
+    q_mask_f, t_t = inputs[1], inputs[2]
+    n_in = float(out_p[:, 7, 0].sum())
+    # 8 flops a pair (3 differences, 3 squares, 2 adds; the compare), ~70 a
+    # row of inliers (residual, Jacobian, 28 products and sums).  Each input
+    # read once: sources, mask, 8 target rows (x, y, z, n, c, valid).
+    ops = 8.0 * b * m * n + 70.0 * n_in
+    n_bytes = 4 * (b * m * 3 + q_mask_f.numel() + 8 * (t_t.numel() // 3) + b * 8 * 128)
+    b_ms, b_by = bound_ms(n_bytes, ops)
+    print(f"K4 p2l_normal_eq {b}x{m}x{n}: n_in kernel {int(out_k[:, 7, 0].sum())} "
+          f"plain {int(n_in)}, padding equal {dis['rest_equal']}, Gram err "
+          f"{dis['gram']:.3e} of sqrt(|G_ii||G_jj|), d2 sum rel err {dis['d2s']:.3e} "
+          f"(tol {P2L_TOL:g} each), max abs err {dis['max_abs_err']:.3e}, "
+          f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return ok, {"name": f"p2l_normal_eq[{b}x{m}x{n}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/icp.cu",
+                "replaces": "open3d_slam_tpu/ops/pallas_icp.py:137",
+                "launches": n_launch, "max_abs_err": dis["max_abs_err"], "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+
+
+def pose_error(a, b):
+    """(translation m, rotation deg) between two 4x4 poses."""
+    import numpy as np
+    d = np.linalg.inv(a) @ b
+    cos = np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+    return float(np.linalg.norm(a[:3, 3] - b[:3, 3])), float(np.degrees(np.arccos(cos)))
+
+
+def missing_kernels(cuda_build, counts, names):
+    """The kernels of ``names`` that ``counts`` saw no launch of."""
+    return [k for k in names if cuda_build.launch_total(k, counts) == 0]
+
+
+def cli_localization(folder, poses, cuda_build, cfg, localization):
+    """Step 6: ``cli.localization.main`` on the saved map and scans from
+    step 3's first pose, counts reset just before.  Returns (ok, counts)."""
+    import math
+    import numpy as np
+    T0 = poses[0]
+    R = T0[:3, :3]
+    xyzrpy = (T0[0, 3], T0[1, 3], T0[2, 3], math.atan2(R[2, 1], R[2, 2]),
+              math.asin(max(-1.0, min(1.0, -R[2, 0]))), math.atan2(R[1, 0], R[0, 0]))
+    out = os.path.join(folder, "poses.npz")
+    argv = ["--map", os.path.join(folder, "map.pcd"), "--param",
+            cfg.config_path("velodyne_puck16.yaml"), "--sequence",
+            os.path.join(folder, "scans"), "--initial-pose",
+            *[f"{float(v):.12f}" for v in xyzrpy], "--save-poses", out]
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    rc = localization.main(argv)
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launches)
+    ok = rc == 0
+    errs = []
+    if ok:
+        got = np.load(out)["poses"]
+        ok = len(got) == LOC_SCANS
+        errs = [pose_error(a, b) for a, b in zip(poses[:LOC_SCANS], got)]
+    worst_t = max((e[0] for e in errs), default=float("inf"))
+    worst_r = max((e[1] for e in errs), default=float("inf"))
+    print(f"CLI localization: rc {rc}, {len(errs)} of {LOC_SCANS} poses in "
+          f"{wall:.2f} s (map load and normals included); largest gap to the "
+          f"replay {worst_t:.4f} m, {worst_r:.4f} deg (limits {LOC_TOL_M} m, "
+          f"{LOC_TOL_DEG} deg); launches {json.dumps(shape_counts(counts))}",
+          flush=True)
+    ok = ok and worst_t <= LOC_TOL_M and worst_r <= LOC_TOL_DEG
+    missing = missing_kernels(cuda_build, counts, ("gicp_normal_eq", "radius_moments_at"))
+    if missing:
+        print(f"CLI localization never launched {missing}", file=sys.stderr)
+    return ok and not missing, counts
+
+
+def global_localization(cuda_build, cfg, datasets, pclib, multi_start):
+    """Step 7: config 4 of the JAX package's bench at its own sizes.  The
+    warm-up pose runs before the counts are reset.  Returns (ok, counts)."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    map_pts = datasets.structured_scene(rng, GLOBAL_MAP)
+    params = cfg.SlamParameters()
+    params.mapper.scan_matcher.icp.max_correspondence_distance = 1.0
+    params.mapper.scan_processing.voxel_size = 0.3
+    map_pc = pclib.from_numpy(map_pts, capacity=GLOBAL_MAP, device="cuda")
+
+    def localize(seed, profile=None):
+        pts, T_true = datasets.planted_scan(map_pts, np.random.default_rng(seed),
+                                            GLOBAL_SCAN)
+        scan = pclib.from_numpy(pts, capacity=GLOBAL_SCAN, device="cuda")
+        t0 = time.perf_counter()
+        T, fit = multi_start.global_localize(scan, map_pc, params,
+                                             num_hypotheses=GLOBAL_HYPOTHESES,
+                                             profile=profile)
+        return time.perf_counter() - t0, T, T_true, fit
+
+    localize(100)
+    cuda_build.launches.clear()
+    times, errs = [], []
+    for seed in GLOBAL_SEEDS:
+        dt, T, T_true, fit = localize(seed)
+        times.append(dt)
+        errs.append(pose_error(T_true, T))
+        print(f"  planted pose {seed}: {dt * 1e3:.2f} ms, fitness {fit:.4f}, "
+              f"t_err {errs[-1][0]:.4f} m, rot err {errs[-1][1]:.4f} deg")
+    counts = dict(cuda_build.launches)
+    stages = {}
+    localize(GLOBAL_SEEDS[0], profile=stages)
+    p50 = float(np.median(times))
+    good = sum(e[0] < GLOBAL_TOL_M and e[1] < GLOBAL_TOL_DEG for e in errs)
+    print(f"global localization: {good} of {len(errs)} planted poses within "
+          f"{GLOBAL_TOL_M} m and {GLOBAL_TOL_DEG} deg, {GLOBAL_HYPOTHESES} "
+          f"hypotheses on {GLOBAL_MAP} map points, per-localization p50 "
+          f"{p50 * 1e3:.2f} ms, {GLOBAL_HYPOTHESES / p50:.1f} hypotheses/s; stage "
+          f"ms (one synchronised run) {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
+          f"launches {json.dumps(shape_counts(counts))}", flush=True)
+    missing = missing_kernels(cuda_build, counts,
+                              ("p2l_normal_eq", "nn_argmin", "radius_moments_at"))
+    if missing:
+        print(f"global localization never launched {missing}", file=sys.stderr)
+    return good == len(errs) and not missing, counts
+
+
+def shape_counts(counts):
+    return {f"{k}{list(s)}": c for (k, s), c in sorted(counts.items())}
+
+
 def replay(slam, scans, cuda_build, devmod):
     """Pipelined replay of ``scans`` with the launch and sync counts set to
     0 just before; returns per-scan ms, wall s (finish included), the
@@ -259,10 +421,14 @@ def main() -> int:
     sys.path.insert(0, here)
     try:
         import numpy as np
-        from open3d_slam_torch.io import lidar_sim
+        from open3d_slam_torch.cli import localization
+        from open3d_slam_torch.io import datasets, lidar_sim, pcd
         from open3d_slam_torch.models.slam_wrapper import SlamWrapper
-        from open3d_slam_torch.ops import cuda_build, cuda_gicp, cuda_knn, cuda_normals
+        from open3d_slam_torch.ops import (cuda_build, cuda_gicp, cuda_icp, cuda_knn,
+                                           cuda_normals)
+        from open3d_slam_torch.parallel import multi_start
         from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
+        from open3d_slam_torch.utils import pointcloud as pclib
     except ImportError as e:
         fail(f"the port package is not beside this script ({e})")
 
@@ -312,7 +478,8 @@ def main() -> int:
 
     recorders = [Recorder(cuda_build, cuda_gicp, "gicp_normal_eq"),
                  Recorder(cuda_build, cuda_normals, "radius_moments_at"),
-                 Recorder(cuda_build, cuda_knn, "nn_argmin")]
+                 Recorder(cuda_build, cuda_knn, "nn_argmin"),
+                 Recorder(cuda_build, cuda_icp, "p2l_normal_eq")]
     for rec in recorders:
         rec.install()
     scans = list(zip(seq.scans, seq.timestamps))[N_SKIP:]
@@ -327,8 +494,7 @@ def main() -> int:
     print(f"ATE rmse {ate.rmse:.4f} m, mean {ate.mean:.4f} m, max {ate.max:.4f} m; "
           f"RPE trans {rpe.trans_rmse:.4f} m, rot {rpe.rot_rmse_deg:.4f} deg")
     print(f"health: {json.dumps(slam.get_health())}")
-    per_shape = {f"{k}{list(s)}": c for (k, s), c in sorted(by_key.items())}
-    print(f"kernel launches in the closures-off replay: {json.dumps(per_shape)}",
+    print(f"kernel launches in the closures-off replay: {json.dumps(shape_counts(by_key))}",
           flush=True)
     ok = True
     if ate.rmse > ATE_LIMIT_M:
@@ -338,9 +504,10 @@ def main() -> int:
         if cuda_build.launch_total(rec.name, by_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
-    if cuda_build.launch_total("nn_argmin", by_key):
-        print("nn_argmin ran with loop closures off", file=sys.stderr)
-        ok = False
+    for name in ("nn_argmin", "p2l_normal_eq"):
+        if cuda_build.launch_total(name, by_key):
+            print(f"{name} ran with loop closures off", file=sys.stderr)
+            ok = False
     if scans_sha1 == SCANS_SHA1 and pose_digest != POSES_SHA1:
         print(f"poses sha1 {pose_digest} on scans {SCANS_SHA1}: the closures-off "
               f"path gave {POSES_SHA1} before", file=sys.stderr)
@@ -357,6 +524,22 @@ def main() -> int:
           f"difference {dev:.3e} (tol 1e-6)")
     if dev > 1e-6:
         ok = False
+    # The map of submap 0 and the first scans, for step 6 (in a folder that
+    # .gitignore lists).
+    loc_dir = os.path.join(here, "o3d_slam_out", "chip_smoke_localization")
+    if os.path.isdir(loc_dir):
+        import shutil
+        shutil.rmtree(loc_dir)
+    os.makedirs(loc_dir)
+    pcd.write_pcd(os.path.join(loc_dir, "map.pcd"),
+                  **pclib.to_numpy(slam.submaps.get_submap(0).map_cloud))
+    datasets.save_sequence(datasets.SyntheticSequence(
+        scans=[p for p, _ in scans[:LOC_SCANS]], timestamps=[t for _, t in scans[:LOC_SCANS]],
+        ground_truth=poses[:LOC_SCANS]), os.path.join(loc_dir, "scans"))
+    print(f"saved submap 0 ({slam.submaps.get_num_submaps()} submaps in all) and "
+          f"the first {LOC_SCANS} scans, {np.linalg.norm(poses[LOC_SCANS - 1][:3, 3] - poses[0][:3, 3]):.2f} m "
+          "of path, for the localization CLI")
+    replay_poses = poses
     del slam, seq_slam
 
     # 5. The full configuration: loop closures and undistortion on.
@@ -382,10 +565,9 @@ def main() -> int:
     print(f"ATE rmse {ate.rmse:.4f} m, mean {ate.mean:.4f} m, max {ate.max:.4f} m; "
           f"RPE trans {rpe.trans_rmse:.4f} m, rot {rpe.rot_rmse_deg:.4f} deg")
     print(f"health: {json.dumps(health)}")
-    per_shape = {f"{k}{list(s)}": c for (k, s), c in sorted(full_key.items())}
-    print(f"kernel launches in the full replay: {json.dumps(per_shape)}", flush=True)
-    for rec in recorders:
-        rec.remove()
+    print(f"kernel launches in the full replay: {json.dumps(shape_counts(full_key))}",
+          flush=True)
+    del slam
     if health["n_loop_closures_accepted"] < 1:
         print("no loop closure was accepted", file=sys.stderr)
         ok = False
@@ -395,25 +577,63 @@ def main() -> int:
     if ate.rmse > ATE_LIMIT_M:
         print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
         ok = False
-    for rec in recorders:
+    for rec in recorders[:3]:
         if cuda_build.launch_total(rec.name, full_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
-    if set(by_key) | set(full_key) != {key for rec in recorders for key in rec.inputs}:
+    for rec in recorders:
+        rec.frozen = set(rec.inputs)
+
+    # 6. The localization CLI as a VLP-16 user runs it.
+    good, cli_key = cli_localization(loc_dir, replay_poses, cuda_build, cfg, localization)
+    ok = ok and good
+
+    # 7. Global localization at config 4's width.
+    good, global_key = global_localization(cuda_build, cfg, datasets, pclib, multi_start)
+    ok = ok and good
+
+    # 8. Point-to-plane tracking: step 3's replay over its first scans with
+    # PointToPlaneIcp for both registrations.
+    p2l = cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
+    p2l.mapper.is_attempt_loop_closures = False
+    p2l.odometry.scan_matcher.reg_type = "PointToPlaneIcp"
+    p2l.mapper.scan_matcher.scan_to_map_reg_type = "PointToPlaneIcp"
+    slam = SlamWrapper(p2l, device="cuda")
+    slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+    torch.cuda.synchronize()
+    per_scan_ms, wall_s, p2l_key, syncs = replay(slam, scans[:P2L_SCANS], cuda_build, devmod)
+    _, ate, rpe = check_trajectory(slam, seq, P2L_SCANS, evaluation)
+    b1 = {s: c for (k, s), c in p2l_key.items() if k == "p2l_normal_eq" and s[0] == 1}
+    print(f"point-to-plane tracking: {P2L_SCANS} scans, per-scan p50 "
+          f"{np.median(per_scan_ms):.2f} ms, host syncs {syncs / P2L_SCANS:.2f} per scan, "
+          f"ATE rmse {ate.rmse:.4f} m (limit {ATE_LIMIT_M} m), RPE trans "
+          f"{rpe.trans_rmse:.4f} m; launches {json.dumps(shape_counts(p2l_key))}",
+          flush=True)
+    del slam
+    if ate.rmse > ATE_LIMIT_M or not b1:
+        print("point-to-plane tracking: ATE over its limit or no B = 1 launch of "
+              "p2l_normal_eq", file=sys.stderr)
+        ok = False
+    for rec in recorders:
+        rec.remove()
+    phases = (full_key, by_key, cli_key, global_key, p2l_key)
+    if set().union(*phases) != {key for rec in recorders for key in rec.inputs}:
         print("a launch key has no recorded inputs", file=sys.stderr)
         ok = False
 
-    # 6. Each kernel against its plain version, at each of its shapes.  The
-    # launches are those of the full replay (the closures-off replay's for a
-    # shape only it ran).
+    # 9. Each kernel against its plain version, at each of its shapes.  The
+    # launches of a shape are those of the full replay, else the
+    # closures-off replay's, else those of steps 6 to 8 together.
     entries = []
     for rec, entry_fn, mod in ((recorders[0], gicp_entry, cuda_gicp),
                                (recorders[1], moments_entry, cuda_normals),
-                               (recorders[2], knn_entry, cuda_knn)):
+                               (recorders[2], knn_entry, cuda_knn),
+                               (recorders[3], icp_entry, cuda_icp)):
         for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
             key = (name, shape)
-            good, entry = entry_fn(mod, shape, full_key.get(key, by_key.get(key, 0)),
-                                   args, kwargs)
+            n_launch = full_key.get(key, by_key.get(key, sum(
+                c.get(key, 0) for c in (cli_key, global_key, p2l_key))))
+            good, entry = entry_fn(mod, shape, n_launch, args, kwargs)
             ok = ok and good
             entries.append(entry)
     if not ok:

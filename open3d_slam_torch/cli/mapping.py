@@ -8,7 +8,9 @@ ground truth.  Runs on ``cuda`` unless ``--device cpu`` is given.
 Usage:
   python -m open3d_slam_torch.cli.mapping --sim vlp16_yard_circle
       [--device cuda|cpu] [--max-scans N] [--param <yaml>] [--undistort]
-      [--eval-json PATH]
+      [--eval-json PATH] [--save-map [--save-folder DIR]]
+  python -m open3d_slam_torch.cli.mapping --sequence DIR --param <yaml>
+      --save-map --save-folder DIR    (then cli.localization --map DIR/map.pcd)
   python -m open3d_slam_torch.cli.mapping --synthetic N --device cpu
 """
 from __future__ import annotations
@@ -34,6 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="open3d_slam mapping on PyTorch/CUDA")
     ap.add_argument("--synthetic", type=int, default=0,
                     help="generate and run an N-scan synthetic circle sequence")
+    ap.add_argument("--sequence", help="folder of scan_*.npz, *.pcd or KITTI "
+                    "scans (io.datasets.load_sequence)")
     ap.add_argument("--sim", metavar="NAME",
                     help="run a named simulated spinning-beam sequence "
                          "(io.lidar_sim.BENCHMARK_SEQUENCES; 'list' to enumerate)")
@@ -44,6 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="enable constant-velocity motion compensation")
     ap.add_argument("--eval-json", metavar="PATH",
                     help="write ATE/RPE/RTF metrics as JSON")
+    ap.add_argument("--save-folder", default="./o3d_slam_out")
+    ap.add_argument("--save-map", action="store_true",
+                    help="write the assembled map to <save-folder>/map.pcd")
+    ap.add_argument("--no-skip-first", action="store_true",
+                    help="replay the first clouds too (the reference skips 5)")
     ap.add_argument("--no-pipeline", action="store_true",
                     help="serialize the per-scan stages instead of the default "
                          "pipelined replay")
@@ -97,13 +106,16 @@ def main(argv=None) -> int:
         print(f"rendering simulated sequence {spec.name} ({spec.n_scans} scans)...")
         seq = lidar_sim.make_sim_sequence(spec, cache_dir="")
         seq_name = spec.name
+    elif args.sequence:
+        seq = datasets.load_sequence(args.sequence)
+        seq_name = os.path.basename(os.path.normpath(args.sequence))
     elif args.synthetic:
         seq = datasets.make_synthetic_sequence(
             n_scans=args.synthetic, trajectory="circle",
             radius=12.0, angle_total=2 * np.pi * 1.05)
         seq_name = f"synthetic_circle_{args.synthetic}"
     else:
-        print("need --sim or --synthetic", file=sys.stderr)
+        print("need --sequence, --sim or --synthetic", file=sys.stderr)
         return 2
     if args.max_scans:
         seq = datasets.SyntheticSequence(
@@ -114,12 +126,17 @@ def main(argv=None) -> int:
     params = load_params(args.param)
     if args.undistort:
         params.motion_compensation.is_undistort_input_cloud = True
+    if args.save_map:
+        params.saving.is_save_map = True
     slam = SlamWrapper(params, device=device)
+    slam.folder_path = args.save_folder
+    n_skip = 0 if args.no_skip_first else SKIP_FIRST_N_POINT_CLOUDS
     t0 = time.time()
-    slam.warmup(scans=seq.scans[:SKIP_FIRST_N_POINT_CLOUDS],
-                timestamps=seq.timestamps[:SKIP_FIRST_N_POINT_CLOUDS])
+    slam.warmup(scans=seq.scans[:n_skip], timestamps=seq.timestamps[:n_skip])
     print(f"warmed up in {time.time() - t0:.1f} s")
-    rtf = run_sequence(slam, seq, pipelined=not args.no_pipeline)
+    rtf = run_sequence(slam, seq, skip_first=n_skip, pipelined=not args.no_pipeline)
+    if params.saving.is_save_map or params.saving.is_save_at_mission_end:
+        print("saved map to", slam.save_map())
 
     times, poses = slam.get_trajectory()
     if not seq.ground_truth or len(poses) <= 2:

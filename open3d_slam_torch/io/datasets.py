@@ -83,6 +83,56 @@ class SyntheticWorld:
         return ((world_pts - t) @ R).astype(np.float32)
 
 
+def structured_scene(rng: np.random.Generator, n: int,
+                     extent: float = 14.0) -> np.ndarray:
+    """Ground + perimeter walls + random boxes, (n, 3) float32: geometry with
+    a unique global registration optimum, for global localization (a
+    pillar-field yard aliases under ~5 m translations; a wrong basin can
+    score fitness 1.0).  A copy of ``bench.py``'s ``_structured_scene``, draw
+    for draw."""
+    ng = n // 2
+    ground = np.stack([rng.uniform(-extent, extent, ng),
+                       rng.uniform(-extent, extent, ng),
+                       rng.normal(0, 0.02, ng)], axis=1)
+    nw = n // 8
+    walls = []
+    for axis, sign in ((0, -1), (0, 1), (1, -1), (1, 1)):
+        w = np.empty((nw, 3))
+        w[:, axis] = sign * extent + rng.normal(0, 0.02, nw)
+        w[:, 1 - axis] = rng.uniform(-extent, extent, nw)
+        w[:, 2] = rng.uniform(0, 3.0, nw)
+        walls.append(w)
+    boxes = []
+    m = max(1, n // 24)
+    for _ in range(8):
+        cx, cy = rng.uniform(-extent * 0.7, extent * 0.7, 2)
+        w, h = rng.uniform(0.5, 1.5), rng.uniform(1.0, 3.0)
+        face = rng.integers(0, 4, m)
+        fx = np.where(face == 0, -w, np.where(face == 1, w, rng.uniform(-w, w, m)))
+        fy = np.where(face == 2, -w, np.where(face == 3, w, rng.uniform(-w, w, m)))
+        boxes.append(np.stack([cx + fx, cy + fy, rng.uniform(0, h, m)], axis=1))
+    pts = np.concatenate([ground] + walls + boxes).astype(np.float32)
+    return pts[rng.permutation(len(pts))[:n]]
+
+
+def planted_scan(map_points: np.ndarray, pose_rng: np.random.Generator,
+                 n_scan: int, reach: float = 14.0):
+    """A scan of ``map_points`` from a random planar pose (yaw in [0, 2 pi),
+    x, y in [-9, 9] m), in the sensor frame: the map points within ``reach``
+    (in x, y) of the pose, ``n_scan`` of them drawn without replacement.
+    Returns (scan (k, 3) float32, T_true (4, 4)), draw for draw as
+    ``bench.py``'s ``bench_multistart_localization``."""
+    T_true = np.eye(4)
+    yaw = pose_rng.uniform(0, 2 * np.pi)
+    T_true[:3, :3] = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                               [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+    T_true[:2, 3] = pose_rng.uniform(-9.0, 9.0, 2)
+    d = np.linalg.norm(map_points[:, :2] - T_true[:2, 3], axis=1)
+    vis = map_points[d < reach]
+    sel = pose_rng.choice(len(vis), min(n_scan, len(vis)), replace=False)
+    return ((vis[sel] - T_true[:3, 3]) @ T_true[:3, :3]).astype(np.float32), T_true
+
+
 def circle_trajectory(n_poses: int, radius: float = 15.0, z: float = 1.5,
                       angle_total: float = 2 * np.pi,
                       yaw_follows_path: bool = True) -> List[np.ndarray]:

@@ -1,10 +1,10 @@
 """Cloud-registration strategy: the polymorphic ICP dispatch.
 
 Port of ``open3d_slam_tpu.models.cloud_registration`` (reference
-``CloudRegistration.cpp:16-100``).  GeneralizedIcp — the registration of
-both the scan-to-scan and the scan-to-map stages in every shipped
-configuration — is ported; PointToPlaneIcp and PointToPointIcp come with the
-localization slice.
+``CloudRegistration.cpp:16-100``): PointToPlaneIcp (kernel K4),
+PointToPointIcp (correspondences through kernel K3) and GeneralizedIcp
+(kernel K1), each with its normal/covariance policy
+(``estimateNormalsOrCovariancesIfNeeded``) and its registration call.
 """
 from __future__ import annotations
 
@@ -16,9 +16,6 @@ from open3d_slam_torch.ops import normals as normals_ops, registration
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils.config import CloudRegistrationParameters, IcpParameters
 from open3d_slam_torch.utils.pointcloud import PointCloud
-
-_LATER = ("{} is not ported yet: it arrives with the localization slice of "
-          "the port (see ROADMAP.md); use GeneralizedIcp")
 
 
 class PreparedCloud(NamedTuple):
@@ -53,20 +50,38 @@ class CloudRegistrationStrategy:
     def __init__(self, reg_type: str, icp: IcpParameters):
         if reg_type not in ("PointToPlaneIcp", "PointToPointIcp", "GeneralizedIcp"):
             raise ValueError(f"unknown registration type {reg_type!r}")
-        if reg_type != "GeneralizedIcp":
-            raise NotImplementedError(_LATER.format(reg_type))
         self.reg_type = reg_type
         self.icp = icp
 
     def needs_normals(self) -> bool:
-        return True
+        return self.reg_type in ("PointToPlaneIcp", "GeneralizedIcp")
+
+    def estimate_normals_if_needed(self, pc: PointCloud,
+                                   sensor_position: Optional[torch.Tensor] = None
+                                   ) -> PointCloud:
+        """Hybrid-KNN PCA normals oriented toward the sensor
+        (``KDTreeSearchParamHybrid(maxDistanceKnn_, knn_)``), when the type
+        needs them."""
+        if not self.needs_normals():
+            return pc
+        return normals_ops.estimate_normals(
+            pc, radius=self.icp.max_distance_knn, max_nn=self.icp.knn,
+            orientation_reference=sensor_position)
 
     def prepare_target(self, pc: PointCloud) -> PreparedCloud:
         cell = max(self.icp.max_correspondence_distance, 1e-6)
-        return _prepare_target_fn(pc, cell, with_covs=True)
+        return _prepare_target_fn(pc, cell, with_covs=self.reg_type == "GeneralizedIcp")
 
     def register(self, source: PointCloud, target: PreparedCloud,
                  init: torch.Tensor) -> registration.RegistrationResult:
+        if self.reg_type == "PointToPlaneIcp":
+            return registration.icp_point_to_plane(
+                source, target.grid, init, self.icp.max_correspondence_distance,
+                max_iterations=self.icp.max_num_iter)
+        if self.reg_type == "PointToPointIcp":
+            return registration.icp_point_to_point(
+                source, target.grid, init, self.icp.max_correspondence_distance,
+                max_iterations=self.icp.max_num_iter)
         source_covs = normals_ops.covariances_from_normals(source)
         return registration.icp_generalized(
             source, source_covs, target.grid, target.covs_sorted, init,

@@ -2,12 +2,11 @@
 
 Port of ``open3d_slam_tpu.models.constraints`` (reference ``Constraint``,
 ``Constraints.hpp``, and ``constraint_builders.cpp``): between a parent and
-a child submap, overlap extraction, then the information matrix from the
+a child submap, overlap extraction, the optional ICP refinement of the
+constraint (``is_refine_odometry_constraints_between_submaps``:
+point-to-plane ICP, kernel K4), then the information matrix from the
 nearest-neighbour correspondences (kernel K3 through
-``hashgrid.query_nearest``).  The ICP refinement of the constraint
-(``is_refine_odometry_constraints_between_submaps``) needs point-to-plane
-ICP and so kernel K4, which arrive with the localization slice: it is
-refused.  Every shipped configuration leaves it off.
+``hashgrid.query_nearest``).
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ import numpy as np
 import torch
 
 from open3d_slam_torch.ops import hashgrid, overlap as overlap_ops, pose_graph as pg_ops
+from open3d_slam_torch.ops import registration
 from open3d_slam_torch.utils import pointcloud as pclib, se3
 from open3d_slam_torch.utils.device import prefetch_to_host, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
@@ -29,12 +29,6 @@ VOXEL_EXPANSION_OVERLAP = 20.0
 VOXEL_EXPANSION_ICP_CORR = 1.5
 SOURCE_COMPACT_CAP = 32768
 TARGET_COMPACT_CAP = 65536
-
-REFINE_NOT_PORTED = (
-    "mapper.is_refine_odometry_constraints_between_submaps is set, but the "
-    "ICP refinement of odometry constraints runs point-to-plane ICP (kernel "
-    "K4), which arrives with the localization slice of the port (see "
-    "ROADMAP.md); set it to false")
 
 
 @dataclasses.dataclass
@@ -61,15 +55,13 @@ def constraint_outputs(source: PointCloud, target: PointCloud,
                        is_skip_icp_refinement: bool,
                        src_compact_cap: int, tgt_compact_cap: int):
     """The whole constraint estimation on the device: overlap -> compact ->
-    correspondences -> information matrix.  Returns (T (4, 4), info (6, 6))
-    as device tensors.
+    (ICP refinement) -> correspondences -> information matrix.  Returns
+    (T (4, 4), info (6, 6)) as device tensors.
 
     Clouds over the compaction capacities keep a uniform stride of their
     points; the information matrix is scaled by the full/compacted count
     ratio so that edge weights keep the reference's full-cloud magnitudes
     (``GetInformationMatrixFromPointClouds`` sums over all correspondences)."""
-    if not is_skip_icp_refinement:
-        raise NotImplementedError(REFINE_NOT_PORTED)
     dev = source.device
     eye4 = torch.eye(4, dtype=torch.float32, device=dev)
     if is_compute_overlap:
@@ -84,8 +76,12 @@ def constraint_outputs(source: PointCloud, target: PointCloud,
         n_src_full / torch.clamp(source.count().to(torch.float32), min=1.0), min=1.0)
     T_icp = eye4
     info = torch.eye(6, dtype=torch.float32, device=dev)
+    grid = hashgrid.build(target, cell_size=icp_max_corr_distance)
+    if not is_skip_icp_refinement:
+        T_icp = registration.icp_point_to_plane(
+            source, grid, eye4, icp_max_corr_distance,
+            max_iterations=ICP_RUN_UNTIL_CONVERGENCE_ITERS).transformation
     if is_estimate_information_matrix:
-        grid = hashgrid.build(target, cell_size=icp_max_corr_distance)
         pts = se3.transform_points(T_icp, source.points)
         idx, _, found = hashgrid.query_nearest(grid, pts, icp_max_corr_distance)
         q = grid.points_sorted[idx.long()]

@@ -105,6 +105,9 @@ class Mapper:
         if self.submaps.get_active_submap().is_empty():
             _finalize_odom()
             if p.is_use_initial_map:
+                if not self.scan_to_map_reg.is_merge_scan_valid(raw_scan):
+                    raise ValueError("initial map invalid: this registration "
+                                     "type needs normals")
                 self.submaps.insert_scan(raw_scan, raw_scan, np.eye(4), timestamp)
             else:
                 if processed is None:
@@ -204,3 +207,11 @@ class Mapper:
         self.last_measurement_timestamp = timestamp
         self.map_to_range_sensor_prev = self.map_to_range_sensor.copy()
         return True
+
+    def add_range_measurement(self, raw_scan: PointCloud, timestamp: float,
+                              odom_pending=None) -> bool:
+        """``addRangeMeasurement`` (``Mapper.cpp:101-181``), blocking form:
+        dispatch, then finalize at once."""
+        mp, ok = self.dispatch_range_measurement(raw_scan, timestamp,
+                                                 odom_pending=odom_pending)
+        return ok if mp is None else self.finalize_range_measurement(mp)

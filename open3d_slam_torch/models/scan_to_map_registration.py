@@ -1,11 +1,12 @@
-"""Scan-to-map registration: dual-crop preprocessing + GICP against a map patch.
+"""Scan-to-map registration: dual-crop preprocessing + ICP against a map patch.
 
 Port of ``open3d_slam_tpu.models.scan_to_map_registration`` (reference
 ``ScanToMapRegistration.cpp:21-102``): the wide (map-builder crop) cloud is
 the *merge* cloud, the narrow (scan-processing crop) cloud the *match*
 cloud; the map patch is the active submap cropped at the current pose and
 compacted in its packed-voxel order, so the target stays spatially coherent
-for the kernel's tile skip.
+for the kernel's tile skip.  The patch carries GICP covariances only when
+the registration type is GeneralizedIcp.
 """
 from __future__ import annotations
 
@@ -32,12 +33,12 @@ class ProcessedScans(NamedTuple):
 
 
 def _patch_prepare(map_cloud: PointCloud, cropper, pose_t: torch.Tensor,
-                   cell: float, patch_capacity: int) -> PreparedCloud:
-    """Crop the map patch at the pose -> compact -> GICP target."""
+                   cell: float, patch_capacity: int, with_covs: bool) -> PreparedCloud:
+    """Crop the map patch at the pose -> compact -> registration target."""
     patch = map_cloud.with_(
         mask=map_cloud.mask & cropper.is_inside(map_cloud.points, pose_t))
     return _prepare_target_fn(pclib.compact_to(patch, patch_capacity), cell,
-                              with_covs=True)
+                              with_covs=with_covs)
 
 
 class ScanToMapIcp:
@@ -80,11 +81,24 @@ class ScanToMapIcp:
         pose_t = to_device(np.asarray(map_to_range_sensor)[:3, 3], self.device)
         cell = max(self.params.scan_matcher.icp.max_correspondence_distance, 1e-6)
         prepared = _patch_prepare(active_submap.map_cloud, self.scan_matcher_cropper,
-                                  pose_t, cell, self.patch_capacity)
+                                  pose_t, cell, self.patch_capacity,
+                                  self.registration.reg_type == "GeneralizedIcp")
         if not torch.is_tensor(initial_guess):
             initial_guess = to_device(initial_guess, self.device)
         return self.registration.register(scan, prepared,
                                           initial_guess.to(torch.float32))
+
+    def is_merge_scan_valid(self, pc: PointCloud) -> bool:
+        """(``ScanToMapRegistration.cpp:64-80``): a merged cloud needs normals
+        unless the registration is point-to-point."""
+        if self.params.scan_matcher.scan_to_map_reg_type == "PointToPointIcp":
+            return True
+        return pc.normals is not None
+
+    def prepare_initial_map(self, pc: PointCloud) -> PointCloud:
+        """(``ScanToMapRegistration.cpp:81-84``): normals for a loaded map."""
+        return self.registration.estimate_normals_if_needed(pc)
+
 
 def scan_to_map_registration_factory(params: MapperParameters,
                                      processed_capacity: int = 16384,

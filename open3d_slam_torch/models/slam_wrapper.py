@@ -10,10 +10,10 @@ replay with one scan in flight, and ``finish_processing`` with its final
 closure round.  The reference's worker threads become a sequential,
 deterministic host pipeline feeding the device.
 
-The dense map arrives with a later slice of the port; a configuration that
-turns it on is refused, as is the ICP refinement of odometry constraints
-(kernel K4, the localization slice).  The wrapper runs on ``cuda`` unless
-the caller asks for another device.
+Localization mode: ``set_initial_map`` and ``set_initial_transform``.  The
+dense map arrives with a later slice of the port; a configuration that turns
+it on is refused.  The wrapper runs on ``cuda`` unless the caller asks for
+another device.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 
 from open3d_slam_torch.models.buffers import CircularBuffer
 from open3d_slam_torch.models.constraints import (
-    REFINE_NOT_PORTED, Constraint, compute_odometry_constraints, finalize_constraint)
+    Constraint, compute_odometry_constraints, finalize_constraint)
 from open3d_slam_torch.models.mapper import Mapper
 from open3d_slam_torch.models.odometry import LidarOdometry
 from open3d_slam_torch.models.optimization import OptimizationProblem
@@ -44,9 +44,6 @@ def _check_supported(p: SlamParameters):
             "mapper.is_build_dense_map is set, but it is not ported yet: it "
             "arrives with the dense-map slice of the port (see ROADMAP.md); "
             "set it to false")
-    if (p.mapper.is_attempt_loop_closures and
-            p.mapper.is_refine_odometry_constraints_between_submaps):
-        raise NotImplementedError(REFINE_NOT_PORTED)
 
 
 class TimestampedPointCloud:
@@ -421,7 +418,8 @@ class SlamWrapper:
         vox = cmod.get_map_voxel_size(p.map_builder.map_voxel_size)
         out_c = cmod.constraint_outputs(
             map_c, map_c, True, cmod.VOXEL_EXPANSION_ICP_CORR * vox,
-            cmod.VOXEL_EXPANSION_OVERLAP * vox, True, True,
+            cmod.VOXEL_EXPANSION_OVERLAP * vox, True,
+            not p.is_refine_odometry_constraints_between_submaps,
             min(map_c.capacity, cmod.SOURCE_COMPACT_CAP),
             min(map_c.capacity, cmod.TARGET_COMPACT_CAP))
         pr = self.place_recognition
@@ -446,6 +444,24 @@ class SlamWrapper:
                                 g.loop_closure_preference, g.edge_prune_threshold,
                                 g.reference_node)
         to_host(res_r.num_inliers, out_c[1], out_ref[0], out_g[1])
+
+    # ------------------------------------------------------------------
+    # Initialization / localization mode
+
+    def set_initial_map(self, map_points: np.ndarray, timestamp: float = 0.0):
+        """``setInitialMap`` (``SlamWrapper.cpp:209-220``): the map, with the
+        normals its registration type needs, goes through the mapper's
+        first-scan path with ``is_use_initial_map`` (``Mapper.cpp:105-115``)."""
+        cloud = pclib.from_numpy(np.asarray(map_points, np.float32),
+                                 capacity=self.params.capacities.submap_points,
+                                 device=self.device)
+        cloud = self.mapper.scan_to_map_reg.prepare_initial_map(cloud)
+        self.mapper.add_range_measurement(cloud, timestamp)
+
+    def set_initial_transform(self, T: np.ndarray):
+        """``setInitialTransform`` (``SlamWrapper.cpp:222-225``)."""
+        self.odometry.set_initial_transform(T)
+        self.mapper.set_map_to_range_sensor_initial(T)
 
     # ------------------------------------------------------------------
     # Saving (SlamWrapper.cpp:65-78, :242-256)

@@ -1,8 +1,8 @@
-"""Kernels K1, K2 and K3 on the card against their plain PyTorch versions on
-the same card tensors, at the layouts the JAX signatures allow: one shared
+"""Kernels K1, K2, K3 and K4 on the card against their plain PyTorch versions
+on the same card tensors, at the layouts the JAX signatures allow: one shared
 2-D target or one target per batch element, with and without the tile skip,
-sizes that do not fill the last block or tile; for K3 also every target
-masked and exact ties.
+sizes that do not fill the last block or tile; for K3 and K4 also every
+target masked and exact ties.
 
 Marked ``cuda``: they skip without a CUDA card and ``nvcc``.  This file
 imports neither JAX nor the JAX package, so it runs on a card's machine that
@@ -17,15 +17,16 @@ another order, so each entry is held at its own scale (see
 ``plain_disagreement`` in each kernel module): a Gram entry (i, j) to 1e-5
 of sqrt(|G_ii| |G_jj|), the inlier d2 sum to 1e-5 of itself, a moment to
 1e-5 of the sum of |feature| over the same neighbours.  1e-5 is about a
-hundred float32 roundings of the entry's scale.  K3 computes each distance
-with the plain version's operations in its order, so its indices and
-distances are equal, not close.
+hundred float32 roundings of the entry's scale (K4 is held like K1).  K3
+computes each distance with the plain version's operations in its order, so
+its indices and distances are equal, not close.
 """
 import numpy as np
 import pytest
 import torch
 
-from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_knn as tk
+from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_icp as ti
+from open3d_slam_torch.ops import cuda_knn as tk
 from open3d_slam_torch.ops import cuda_normals as tcn
 from open3d_slam_torch.ops import normals as tn
 from open3d_slam_torch.utils import pointcloud as tpc
@@ -177,3 +178,85 @@ def test_nn_argmin_kernel_breaks_ties_to_lowest_index_on_card(cuda_device):
     (gi, gd), (wi, wd) = _knn_on_card(q, t.t().contiguous(), t2)
     assert gi[:4].tolist() == [0, 1, 2, 3]
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+def _p2l_problem(rng, dev, batch, m, n, shared):
+    """Posed copies of a subsample near planar target(s) with normals, a
+    twentieth of the sources invalid, the last fiftieth of each target
+    padding; the shared case also shares the (M, 1) mask."""
+    tgts = []
+    for _ in range(1 if shared else batch):
+        pts = _planes(rng, n)
+        mask = np.ones(n, bool)
+        mask[-(n // 50):] = False
+        pc = tpc.PointCloud(torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
+        tgts.append(tn.estimate_normals(pc, 1.0, max_nn=12))
+    prep = [ti.prepare_target(t.points, t.normals, t.mask) for t in tgts]
+    target = prep[0] if shared else tuple(torch.stack(a).contiguous() for a in zip(*prep))
+    srcs = []
+    for b in range(batch):
+        base = tgts[0 if shared else b].points.cpu().numpy()
+        srcs.append(base[rng.choice(n, m, replace=m > n)] +
+                    rng.normal(scale=0.05, size=(m, 3)).astype(np.float32))
+    q = torch.from_numpy(np.stack(srcs)).to(dev).contiguous()
+    qm = torch.from_numpy((rng.uniform(size=(batch, m, 1)) > 0.05).astype(np.float32)).to(dev)
+    qm = (qm[0] if shared else qm).contiguous()
+    return (q, qm) + target + (torch.full((1, 1), 0.25, device=dev),)
+
+
+def _p2l_on_card(args):
+    """K4 and its plain version on the same card tensors; the launch is
+    counted once."""
+    key = ("p2l_normal_eq", (args[0].shape[0], args[0].shape[1], args[2].shape[-1]))
+    before = cuda_build.launches[key]
+    got = ti.p2l_normal_eq(*args)
+    assert cuda_build.launches[key] == before + 1
+    want = ti.p2l_normal_eq_plain(*args)
+    assert got.shape == want.shape == (args[0].shape[0], 8, 128)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m,n,shared", [
+    (1, 8192, 32768, True),     # the final registration: B = 1, target split
+    (1, 32768, 65536, True),    # the refinement of an odometry constraint
+    (64, 2048, 8192, True),     # a hypothesis batch against one map
+    (3, 1000, 3001, False),     # a target per element; partial block/tile
+])
+def test_p2l_kernel_matches_plain_on_card(cuda_device, rng, batch, m, n, shared):
+    got, want = _p2l_on_card(_p2l_problem(rng, cuda_device, batch, m, n, shared))
+    assert float(want[:, 7, 0].min()) > 0.5 * m
+    dis = ti.plain_disagreement(got, want)
+    assert dis["n_in_equal"] and dis["rest_equal"], dis
+    assert dis["gram"] <= 1e-5 and dis["d2s"] <= 1e-5, dis
+
+
+@pytest.mark.cuda
+def test_p2l_kernel_all_targets_masked_on_card(cuda_device, rng):
+    args = list(_p2l_problem(rng, cuda_device, 2, 300, 777, True))
+    args[5] = torch.zeros_like(args[5])
+    args[6] = torch.full((1, 1), 1e30, device=cuda_device)
+    got, want = _p2l_on_card(tuple(args))
+    assert not bool(got.any()) and not bool(want.any())
+
+
+@pytest.mark.cuda
+def test_p2l_kernel_breaks_ties_to_lowest_index_on_card(cuda_device):
+    """Every target at three indices in other tiles and splits, the later
+    copies with other normals: the Gram is that of the first copy's
+    normal (+z) for every inlier."""
+    base = torch.tensor([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0], [0.0, 3.0, 0.0],
+                         [0.0, 0.0, 3.0]], device=cuda_device)
+    pts = torch.cat([base.repeat(700, 1), base.repeat(700, 1) + 100.0, base.repeat(700, 1)])
+    nrm = torch.zeros_like(pts)
+    nrm[:2800, 2] = 1.0
+    nrm[2800:, 0] = 1.0
+    q = (base.repeat(50, 1) + 0.01)[None].contiguous()
+    target = ti.prepare_target(pts, nrm, torch.ones(pts.shape[0], dtype=torch.bool,
+                                                    device=cuda_device))
+    args = (q, torch.ones((200, 1), device=cuda_device)) + target + (
+        torch.full((1, 1), 0.04, device=cuda_device),)
+    got, want = _p2l_on_card(args)
+    dis = ti.plain_disagreement(got, want)
+    assert dis["n_in_equal"] and dis["gram"] <= 1e-5, dis
+    assert float(got[0, 3, 3]) == 0.0 and float(got[0, 5, 5]) == 200.0

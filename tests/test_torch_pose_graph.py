@@ -224,13 +224,41 @@ def test_build_constraint_matches_jax(rng):
                                atol=1e-4 * np.abs(info_j).max())
 
 
-def test_refined_odometry_constraints_are_refused():
-    tp = to_torch_params(small_jax_params()).mapper
-    tp.is_refine_odometry_constraints_between_submaps = True
-    with pytest.raises(NotImplementedError, match="localization slice"):
-        tcons.build_odometry_constraint(0, 1, types.SimpleNamespace(
-            params=tp, get_submap=lambda i: types.SimpleNamespace(
-                map_cloud=tpc.from_numpy(np.zeros((4, 3), np.float32)))))
+def test_refined_odometry_constraints_are_refused(rng):
+    """Refused until the localization slice; now
+    ``build_odometry_constraint`` runs the refinement: point-to-plane ICP
+    (K4) of the overlap before the information matrix.  Three planes with
+    normals, the child submap's cloud turned 0.01 rad and shifted 4 cm: the
+    constraint recovers the motion, and (T, info) match the JAX function's."""
+    n = 2048
+    pts = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    plane = rng.integers(0, 3, n)
+    pts[np.arange(n), plane] = np.float32(5.0) * (plane > 0)   # x = 0, y = 5, z = 5
+    nrm = np.eye(3, dtype=np.float32)[plane]
+    R = Rotation.from_euler("z", 0.01).as_matrix().astype(np.float32)
+    shift = np.float32([0.04, -0.03, 0.02])
+    clouds = [(pts, nrm), ((pts @ R.T + shift).astype(np.float32), nrm @ R.T)]
+    outs = {}
+    for name, mod in (("jax", jpc), ("torch", tpc)):
+        mp = small_jax_params().mapper if name == "jax" else to_torch_params(
+            small_jax_params()).mapper
+        mp.map_builder.map_voxel_size = 0.1
+        mp.is_refine_odometry_constraints_between_submaps = True
+        subs = [mod.from_numpy(p, capacity=n, normals=q) for p, q in clouds]
+        submaps = types.SimpleNamespace(
+            params=mp, get_submap=lambda i, c=subs: types.SimpleNamespace(map_cloud=c[i]))
+        if name == "jax":
+            with jax_kernel_path():
+                outs[name] = jcons.build_odometry_constraint(0, 1, submaps)
+        else:
+            outs[name] = tcons.build_odometry_constraint(0, 1, submaps)
+    tc, jc = outs["torch"], outs["jax"]
+    np.testing.assert_allclose(tc.source_to_target[:3, 3], shift, atol=5e-3)
+    np.testing.assert_allclose(tc.source_to_target, jc.source_to_target, atol=1e-4)
+    info_j = np.asarray(jc.information_matrix)
+    assert info_j[5, 5] > 0.5 * n
+    np.testing.assert_allclose(tc.information_matrix, info_j, rtol=1e-4,
+                               atol=1e-4 * np.abs(info_j).max())
 
 
 @pytest.mark.parametrize("clockwise", [True, False])

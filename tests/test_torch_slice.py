@@ -159,9 +159,10 @@ def test_interop_round_trips(rng):
                                   "is_undistort_input_cloud"])
 def test_wrapper_refuses_later_slices(flag):
     """The flags the first slice refused.  The dense map is still refused.
-    Loop closures and undistortion are ported now and accepted; along the
-    closure path the ICP refinement of odometry constraints (point-to-plane
-    ICP, kernel K4) is still refused, naming the slice that brings it."""
+    Loop closures and undistortion are ported now and accepted, and along
+    the closure path so is the ICP refinement of odometry constraints
+    (point-to-plane ICP, kernel K4; it runs in
+    ``test_torch_pose_graph.py::test_refined_odometry_constraints_are_refused``)."""
     tp = to_torch_params(small_jax_params())
     owner = tp.motion_compensation if flag == "is_undistort_input_cloud" else tp.mapper
     setattr(owner, flag, True)
@@ -172,8 +173,8 @@ def test_wrapper_refuses_later_slices(flag):
     assert getattr(owner, flag) and SlamWrapper(tp, device="cpu").params is tp
     if flag == "is_attempt_loop_closures":
         tp.mapper.is_refine_odometry_constraints_between_submaps = True
-        with pytest.raises(NotImplementedError, match="localization slice"):
-            SlamWrapper(tp, device="cpu")
+        slam = SlamWrapper(tp, device="cpu")
+        assert slam.params.mapper.is_refine_odometry_constraints_between_submaps
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

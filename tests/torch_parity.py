@@ -4,21 +4,31 @@ On the CPU the JAX package routes around its Pallas kernels (hash-probe
 normals, hash-grid NN, hash-sorted targets).  The port follows the kernel
 path on every device, so the parity tests hold it against the JAX kernel
 path: ``jax_kernel_path`` routes the JAX package's backend checks to "tpu",
-runs its Pallas kernels in interpret mode and makes its k-th-neighbour
-prepass exact.  Nothing of the JAX package is edited; the patches live only
+runs its Pallas kernels (K1 to K4) in interpret mode and makes its
+k-th-neighbour prepass exact.  Nothing of the JAX package is edited; the patches live only
 inside the context.
 """
 import contextlib
 import dataclasses
+import os
 
 import jax
 import numpy as np
 import torch
 from jax.experimental import pallas as pl
 
-from open3d_slam_tpu.ops import pallas_gicp, pallas_knn, pallas_normals
+from open3d_slam_tpu.ops import pallas_gicp, pallas_icp, pallas_knn, pallas_normals
 from open3d_slam_tpu.utils import config as jcfg
 from open3d_slam_torch.utils import interop
+
+# Under pytest-xdist each worker gets its share of the cores for torch's CPU
+# operations.  With a thread per core in every worker, OpenMP's spinning
+# barriers oversubscribe the machine: six workers on eight cores each ran
+# the port's global localization of tests/test_torch_localization.py in
+# 460 s instead of 12 s.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def _forcing(fn, **forced):
@@ -46,6 +56,8 @@ def jax_kernel_path():
         (pallas_knn, "pl", _InterpretedPallas()),
         (pallas_gicp, "gicp_normal_eq",
          _forcing(pallas_gicp.gicp_normal_eq, interpret=True)),
+        (pallas_icp, "p2l_normal_eq",
+         _forcing(pallas_icp.p2l_normal_eq, interpret=True)),
         (pallas_normals, "radius_moments_at",
          _forcing(pallas_normals.radius_moments_at, interpret=True)),
         (pallas_normals, "radius_moments",
