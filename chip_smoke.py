@@ -35,7 +35,8 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      registrations (the ``SlamParameters`` default) and checks the ATE;
   9. holds each kernel against its plain PyTorch version on the card, on the
      inputs the runs last gave it at each of its shapes, and times both
-     next to the least time the card could take (the bound);
+     next to the least time the card could take (the bound); for K1 and K4
+     also the device time of each of a call's launches (``torch.profiler``);
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
@@ -48,6 +49,7 @@ card, or when run outside the repository.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -103,6 +105,27 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def launch_us(fn, reps: int = 5) -> dict:
+    """Device microseconds per call of each CUDA kernel that ``fn``
+    launches, by kernel name, from ``torch.profiler`` over ``reps`` calls
+    after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def name(key):     # "nn::(anonymous namespace)::nn_sweep(...)" -> "nn_sweep"
+        return re.sub(r"\(anonymous namespace\)::", "", key).split("(")[0].split("::")[-1]
+
+    return {name(e.key): round(e.self_device_time_total / reps, 2)
+            for e in prof.key_averages() if e.device_type == cuda}
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
@@ -143,34 +166,38 @@ P2L_TOL = 1e-5      # the same for K4
 MOMENTS_TOL = 1e-5  # moment vs the sum of |feature| over its neighbours
 
 
+def swept_pairs(q_pts, q_mask_f, layout, r2):
+    """(pairs the exact skip leaves to sweep, splits) of one K1 or K4 call:
+    (query group, target tile) pairs within r of each other, at the
+    kernel's granularity (``nn_layout.tile_need``), times the pairs in
+    each; the splits ``nn_layout.plan_splits`` gives the launch."""
+    from open3d_slam_torch.ops import nn_layout
+    need = nn_layout.tile_need(q_pts, q_mask_f, layout, r2)
+    b, groups, tiles = need.shape
+    splits = nn_layout.plan_splits(groups, b, tiles, q_pts.device)
+    return int(need.sum().item()) * nn_layout.GROUP * nn_layout.TILE, splits
+
+
 def gicp_entry(cuda_gicp, shape, n_launch, args, kwargs):
     import torch
-    q_pts, q_mask_f, q_cov6, td, tv, r2 = args[:6]
-    t_aabb = kwargs.get("t_aabb", args[6] if len(args) > 6 else None)
+    from open3d_slam_torch.ops import nn_layout
+    bound = inspect.signature(cuda_gicp.gicp_normal_eq).bind(*args, **kwargs)
+    bound.apply_defaults()
+    q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb, layout = bound.args
     out_k = cuda_gicp.gicp_normal_eq(*args, **kwargs)
-    out_p = cuda_gicp.gicp_normal_eq_plain(q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb)
+    out_p = cuda_gicp.gicp_normal_eq_plain(*bound.args)
     torch.cuda.synchronize()
     n_in_k, n_in_p = int(out_k[0, 7, 0].item()), int(out_p[0, 7, 0].item())
     dis = cuda_gicp.plain_disagreement(out_k, out_p)
     ok = (dis["n_in_equal"] and dis["rest_equal"] and dis["gram"] <= GICP_TOL
           and dis["d2s"] <= GICP_TOL)
     ms = time_ms(lambda: cuda_gicp.gicp_normal_eq(*args, **kwargs), 20)
-    plain = time_ms(lambda: cuda_gicp.gicp_normal_eq_plain(
-        q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb), 3)
+    plain = time_ms(lambda: cuda_gicp.gicp_normal_eq_plain(*bound.args), 3)
+    per_launch = launch_us(lambda: cuda_gicp.gicp_normal_eq(*args, **kwargs))
     b, m, n = shape
-    # Pairs the exact AABB skip leaves to sweep, at the kernel's (128-query
-    # block, 256-target tile) granularity: the work this data needs.
-    if t_aabb is not None and m % 128 == 0:
-        qb = q_pts[0].reshape(-1, 128, 3)
-        qv = q_mask_f.reshape(-1, 128, 1) > 0
-        qmin = torch.where(qv, qb, torch.full_like(qb, 3e38)).min(1).values
-        qmax = torch.where(qv, qb, torch.full_like(qb, -3e38)).max(1).values
-        gap = torch.clamp(torch.maximum(t_aabb[None, :, 0:3] - qmax[:, None],
-                                        qmin[:, None] - t_aabb[None, :, 3:6]), min=0)
-        swept = int(((gap * gap).sum(-1) <= r2.reshape(())).sum().item())
-        pairs = swept * 128 * cuda_gicp.TILE_N
-    else:
-        pairs = b * m * n
+    if layout is None:
+        layout = nn_layout.layout_for(q_pts, q_mask_f, td, tv)
+    pairs, splits = swept_pairs(q_pts, q_mask_f, layout, r2)
     n_valid = int((q_mask_f > 0).sum().item())
     ops = pairs * 8 + n_valid * 200      # 8 flops per distance; ~200 per row
     n_bytes = 4 * (m * (3 + 1 + 6) + n * (9 + 1) + 8 * 128)
@@ -180,7 +207,9 @@ def gicp_entry(cuda_gicp, shape, n_launch, args, kwargs):
           f"sqrt(|G_ii||G_jj|), d2 sum rel err {dis['d2s']:.3e} (tol "
           f"{GICP_TOL:g} each), max abs err {dis['max_abs_err']:.3e}, "
           f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}; {pairs} of {m * n} pairs swept)")
+          f"({b_by}; swept {pairs} of {b * m * n} pairs, "
+          f"{100.0 * pairs / (b * m * n):.2f}%, {splits} splits); device us per "
+          f"launch {json.dumps(per_launch)}")
     return ok, {"name": f"gicp_normal_eq[{m}x{n}]", "route": "cuda",
                 "source": "open3d_slam_torch/csrc/gicp.cu",
                 "replaces": "open3d_slam_tpu/ops/pallas_gicp.py:166",
@@ -246,7 +275,10 @@ def knn_entry(cuda_knn, shape, n_launch, args, kwargs):
 
 def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
     import torch
-    inputs = cuda_icp.p2l_inputs(*args, **kwargs)
+    from open3d_slam_torch.ops import nn_layout
+    bound = inspect.signature(cuda_icp.p2l_normal_eq).bind(*args, **kwargs)
+    bound.apply_defaults()
+    inputs = bound.args
     out_k = cuda_icp.p2l_normal_eq(*inputs)
     out_p = cuda_icp.p2l_normal_eq_plain(*inputs)
     torch.cuda.synchronize()
@@ -255,20 +287,28 @@ def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
           and dis["d2s"] <= P2L_TOL)
     ms = time_ms(lambda: cuda_icp.p2l_normal_eq(*inputs), 20)
     plain = time_ms(lambda: cuda_icp.p2l_normal_eq_plain(*inputs), 3)
+    per_launch = launch_us(lambda: cuda_icp.p2l_normal_eq(*inputs))
     b, m, n = shape
-    q_mask_f, t_t = inputs[1], inputs[2]
+    q_pts, q_mask_f, t_t, tv, r2, layout = (inputs[0], inputs[1], inputs[2], inputs[5],
+                                            inputs[6], inputs[7])
+    if layout is None:
+        layout = nn_layout.layout_for(q_pts, q_mask_f, t_t, tv)
+    pairs, splits = swept_pairs(q_pts, q_mask_f, layout, r2)
     n_in = float(out_p[:, 7, 0].sum())
-    # 8 flops a pair (3 differences, 3 squares, 2 adds; the compare), ~70 a
-    # row of inliers (residual, Jacobian, 28 products and sums).  Each input
-    # read once: sources, mask, 8 target rows (x, y, z, n, c, valid).
-    ops = 8.0 * b * m * n + 70.0 * n_in
+    # 8 flops a pair the skip leaves (3 differences, 3 squares, 2 adds; the
+    # compare), ~70 a row of inliers (residual, Jacobian, 28 products and
+    # sums).  Each input read once: sources, mask, 8 target rows (x, y, z,
+    # n, c, valid).
+    ops = 8.0 * pairs + 70.0 * n_in
     n_bytes = 4 * (b * m * 3 + q_mask_f.numel() + 8 * (t_t.numel() // 3) + b * 8 * 128)
     b_ms, b_by = bound_ms(n_bytes, ops)
     print(f"K4 p2l_normal_eq {b}x{m}x{n}: n_in kernel {int(out_k[:, 7, 0].sum())} "
           f"plain {int(n_in)}, padding equal {dis['rest_equal']}, Gram err "
           f"{dis['gram']:.3e} of sqrt(|G_ii||G_jj|), d2 sum rel err {dis['d2s']:.3e} "
           f"(tol {P2L_TOL:g} each), max abs err {dis['max_abs_err']:.3e}, "
-          f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+          f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}; "
+          f"swept {pairs} of {b * m * n} pairs, {100.0 * pairs / (b * m * n):.2f}%, "
+          f"{splits} splits); device us per launch {json.dumps(per_launch)}")
     return ok, {"name": f"p2l_normal_eq[{b}x{m}x{n}]", "route": "cuda",
                 "source": "open3d_slam_torch/csrc/icp.cu",
                 "replaces": "open3d_slam_tpu/ops/pallas_icp.py:137",

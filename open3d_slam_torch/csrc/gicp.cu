@@ -9,190 +9,66 @@
 // the inlier count and the inlier d2 sum, in the (B, 8, 128) layout that
 // pallas_icp.unpack reads.
 //
-// What bounds it on this card: operations.  The nearest-neighbour sweep is
-// M x N pairs of ~9 float32 operations each (16384 x 16384 in odometry,
-// 4096 x 65536 in scan-to-map), while the bytes moved are a few MB.  The
-// per-inlier GICP rows are O(M) and cheap next to the sweep.
+// What bounds it on this card: operations in the nearest-neighbour sweep,
+// M x N pairs of 8 float32 operations that may not fuse (16384 x 16384 in
+// odometry, 4096 x 65536 in scan-to-map), and, at B = 1 with a sweep the
+// skip leaves small, the fixed cost of each launch.  The per-inlier GICP
+// rows are O(M).
 //
-// What the design does about it:
-//   * one thread per source point keeps its running (min d2, argmin) in
-//     registers; target tiles of 256 points are staged through shared memory
-//     as float4 (x, y, z, valid) and read as warp-wide broadcasts;
-//   * the target axis is split across blocks (grid.y) so that a 4096-point
-//     scan-to-map source still fills all SMs; each split writes its own
-//     (d2, index) and the row kernel merges the splits in index order, so
-//     the result is the global first minimum, as jnp.argmin gives;
-//   * the exact AABB tile skip of the TPU kernel is honoured per (query
-//     block, target tile): a tile whose box is farther than the
-//     correspondence distance from the block's box of valid queries cannot
-//     hold an inlier, so it is not swept;
-//   * the winner's 9 target values are read directly by the thread that
-//     holds the argmin (the TPU kernel needs a one-hot MXU product for this);
-//   * the Cholesky, the forward substitution and the 28 upper-triangle Gram
-//     entries are computed in registers; blocks reduce in a fixed tree order
-//     and a third kernel sums the block partials in block order.  There are
-//     no float atomics, so results are bit-reproducible run to run.
-//   * the squared distance is rounded term by term (__fmul_rn/__fadd_rn, in
-//     the JAX operand order) so that an inlier decision never flips against
-//     the plain PyTorch version; the file is built with -fmad=false so the
-//     per-row algebra rounds like PyTorch's separate elementwise operations.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What the design does about it, in two launches:
+//   1. nn::nn_sweep (csrc/nn_sweep.cuh, shared with K4): targets in Morton
+//      order with per-tile boxes, queries in groups of 64 that skip every
+//      tile farther than r from their box (the exact AABB skip of the TPU
+//      kernel, at a granularity that hash or packed-voxel order could not
+//      make tight), tiles staged through a cp.async ring, two queries per
+//      lane, the tie rule kept out of grid order;
+//   2. gicp_rows: one thread per query, in original query order, takes the
+//      winner's key that the splits merged into (and resets it) and reads
+//      the winner's 9 target values directly (the TPU kernel needs a
+//      one-hot MXU product for this); the Cholesky, the
+//      forward substitution and the 28 upper-triangle Gram entries are
+//      computed in registers; blocks reduce in a fixed tree and the last
+//      block of each batch element (an integer ticket) sums the block
+//      partials in block order.  No float atomics: results are
+//      bit-reproducible run to run.
+// The squared distance is rounded term by term (__fmul_rn/__fadd_rn, in the
+// JAX operand order) so that an inlier decision never flips against the
+// plain PyTorch version; the file is built with -fmad=false so the per-row
+// algebra rounds like PyTorch's separate elementwise operations.
+#include "nn_sweep.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // source points per block
-constexpr int kTile = 256;      // target points per shared-memory tile
-constexpr int kNStats = 30;     // 28 Gram entries + n_in + d2 sum
-constexpr float kBig = 3.0e38f;
+using nn::kNStats;
+using nn::kRowThreads;
 constexpr float kDiagEps = 1e-6f;
 constexpr float kSqrtTiny = 1e-12f;
 
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         float tx, float ty, float tz) {
-  const float d0 = __fsub_rn(qx, tx);
-  const float d1 = __fsub_rn(qy, ty);
-  const float d2 = __fsub_rn(qz, tz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
-                   __fmul_rn(d2, d2));
-}
-
-// grid (q_blocks, splits, B); block kThreads.
-__global__ void gicp_nn_partial(const float* __restrict__ q_pts,
-                                const float* __restrict__ q_mask,
-                                int mask_batched,
-                                const float* __restrict__ td,
-                                const float* __restrict__ tv,
-                                int target_batched,
-                                const float* __restrict__ r2p,
-                                const float* __restrict__ t_aabb,
-                                float* __restrict__ part_d2,
-                                int* __restrict__ part_idx,
-                                int M, int N, int tiles_per_split) {
-  __shared__ float4 tile[kTile];
-  __shared__ float box[6][kThreads];
-  __shared__ float qbox[6];
-
-  const int b = blockIdx.z;
-  const int split = blockIdx.y;
-  const int splits = gridDim.y;
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * kThreads + tid;
-  const bool active = i < M;
-  const float* qp = q_pts + (size_t)b * M * 3;
-  const float* qm = q_mask + (mask_batched ? (size_t)b * M : 0);
-  const float* tdb = td + (target_batched ? (size_t)b * 9 * N : 0);
-  const float* tvb = tv + (target_batched ? (size_t)b * N : 0);
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  bool qvalid = false;
-  if (active) {
-    qx = qp[(size_t)i * 3 + 0];
-    qy = qp[(size_t)i * 3 + 1];
-    qz = qp[(size_t)i * 3 + 2];
-    qvalid = qm[i] > 0.f;
-  }
-  const float r2 = *r2p;
-
-  if (t_aabb != nullptr) {
-    // Box of the block's valid queries; a block with none gets an empty
-    // box (min = +BIG, max = -BIG) and rejects every tile.
-    box[0][tid] = qvalid ? qx : kBig;
-    box[1][tid] = qvalid ? qy : kBig;
-    box[2][tid] = qvalid ? qz : kBig;
-    box[3][tid] = qvalid ? qx : -kBig;
-    box[4][tid] = qvalid ? qy : -kBig;
-    box[5][tid] = qvalid ? qz : -kBig;
-    __syncthreads();
-    for (int s = kThreads / 2; s > 0; s >>= 1) {
-      if (tid < s) {
-        for (int a = 0; a < 3; ++a) {
-          box[a][tid] = fminf(box[a][tid], box[a][tid + s]);
-          box[a + 3][tid] = fmaxf(box[a + 3][tid], box[a + 3][tid + s]);
-        }
-      }
-      __syncthreads();
-    }
-    if (tid < 6) qbox[tid] = box[tid][0];
-    __syncthreads();
-  }
-
-  float best = kBig;
-  int arg = 0;
-  const int n_tiles = (N + kTile - 1) / kTile;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  for (int t = t_begin; t < t_end; ++t) {
-    if (t_aabb != nullptr) {
-      const float* ta = t_aabb + (size_t)t * 8;
-      float g2 = 0.f;
-      for (int a = 0; a < 3; ++a) {
-        const float g = fmaxf(fmaxf(ta[a] - qbox[a + 3], qbox[a] - ta[a + 3]), 0.f);
-        g2 += g * g;
-      }
-      if (!(g2 <= r2)) continue;   // uniform across the block
-    }
-    const int base = t * kTile;
-    for (int k = tid; k < kTile; k += kThreads) {
-      const int j = base + k;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < N) {
-        v.x = tdb[j];
-        v.y = tdb[(size_t)N + j];
-        v.z = tdb[(size_t)2 * N + j];
-        v.w = tvb[j];
-      }
-      tile[k] = v;
-    }
-    __syncthreads();
-    const int cnt = min(kTile, N - base);
-    for (int k = 0; k < cnt; ++k) {
-      const float4 v = tile[k];
-      const float d = sq_dist(qx, qy, qz, v.x, v.y, v.z);
-      if (v.w > 0.f && d < best) {
-        best = d;
-        arg = base + k;
-      }
-    }
-    __syncthreads();
-  }
-  if (active) {
-    const size_t o = ((size_t)b * splits + split) * M + i;
-    part_d2[o] = best;
-    part_idx[o] = arg;
-  }
-}
-
-// grid (q_blocks, B); block kThreads.
+// grid (q_blocks, B); block kRowThreads.
 __global__ void gicp_rows(const float* __restrict__ q_pts,
                           const float* __restrict__ q_mask, int mask_batched,
                           const float* __restrict__ q_cov6,
                           const float* __restrict__ td, int target_batched,
                           const float* __restrict__ r2p,
-                          const float* __restrict__ part_d2,
-                          const int* __restrict__ part_idx,
+                          unsigned long long* __restrict__ keys,
                           float* __restrict__ block_part,
-                          int M, int N, int splits) {
-  __shared__ float red[kNStats][kThreads];
+                          unsigned* __restrict__ tickets,
+                          float* __restrict__ out,
+                          int M, int N) {
+  __shared__ float red[kNStats][kRowThreads];
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int i = blockIdx.x * kThreads + tid;
+  const int i = blockIdx.x * kRowThreads + tid;
   float v[kNStats];
   for (int k = 0; k < kNStats; ++k) v[k] = 0.f;
 
-  if (i < M) {
-    float best = kBig;
-    int arg = 0;
-    for (int s = 0; s < splits; ++s) {
-      const size_t o = ((size_t)b * splits + s) * M + i;
-      const float d = part_d2[o];
-      if (d < best) {
-        best = d;
-        arg = part_idx[o];
-      }
-    }
-    const float* qm = q_mask + (mask_batched ? (size_t)b * M : 0);
-    if (best <= *r2p && qm[i] > 0.f) {
+  const float* qm = q_mask + (mask_batched ? (size_t)b * M : 0);
+  if (i < M && qm[i] > 0.f) {
+    float best;
+    int arg;
+    if (!nn::take_winner(keys, b, M, i, best, arg)) {
+      v[28] = best;   // NaN: the query order left this valid query out
+    } else if (best <= *r2p) {
       const float* tdb = td + (target_batched ? (size_t)b * 9 * N : 0);
       float S[9];
       for (int c = 0; c < 9; ++c) S[c] = tdb[(size_t)c * N + arg];
@@ -232,61 +108,33 @@ __global__ void gicp_rows(const float* __restrict__ q_pts,
       v[29] = best;
     }
   }
-  for (int k = 0; k < kNStats; ++k) red[k][tid] = v[k];
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s)
-      for (int k = 0; k < kNStats; ++k) red[k][tid] += red[k][tid + s];
-    __syncthreads();
-  }
-  if (tid < kNStats)
-    block_part[((size_t)b * gridDim.x + blockIdx.x) * kNStats + tid] = red[tid][0];
-}
-
-// grid (B); block 32: entry k of 30 summed over blocks in block order.
-__global__ void gicp_sum(const float* __restrict__ block_part,
-                         float* __restrict__ out, int n_blocks) {
-  const int b = blockIdx.x;
-  const int k = threadIdx.x;
-  if (k >= kNStats) return;
-  float s = 0.f;
-  for (int blk = 0; blk < n_blocks; ++blk)
-    s += block_part[((size_t)b * n_blocks + blk) * kNStats + k];
-  float* o = out + (size_t)b * 8 * 128;
-  if (k < 28) {
-    int r = 0, rem = k;
-    while (rem >= 7 - r) { rem -= 7 - r; ++r; }
-    const int c = r + rem;
-    o[r * 128 + c] = s;
-    o[c * 128 + r] = s;
-  } else {
-    o[7 * 128 + (k - 28)] = s;
-  }
+  nn::reduce_and_finish(v, red, block_part, tickets, out, b);
 }
 
 }  // namespace
 
 extern "C" int gicp_normal_eq_launch(
     const float* q_pts, const float* q_mask, int mask_batched,
-    const float* q_cov6, const float* td, const float* tv, int target_batched,
-    const float* r2, const float* t_aabb,
-    float* part_d2, int* part_idx, float* block_part, float* out,
-    int B, int M, int N, int splits, int tiles_per_split, void* stream) {
+    const int* q_order, int order_batched,
+    const float* t_pts4, const float* t_boxes, int n_tiles,
+    const float* q_cov6, const float* td, int target_batched, const float* r2,
+    unsigned long long* keys, float* block_part, unsigned* tickets,
+    float* out, int B, int M, int N, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int q_blocks = (M + kThreads - 1) / kThreads;
-  gicp_nn_partial<<<dim3(q_blocks, splits, B), kThreads, 0, st>>>(
-      q_pts, q_mask, mask_batched, td, tv, target_batched, r2, t_aabb,
-      part_d2, part_idx, M, N, tiles_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gicp_rows<<<dim3(q_blocks, B), kThreads, 0, st>>>(
+  nn::SweepArgs a{q_pts, q_mask, q_order,
+                  reinterpret_cast<const float4*>(t_pts4),
+                  reinterpret_cast<const float4*>(t_boxes), r2,
+                  keys, mask_batched, order_batched,
+                  target_batched, M, n_tiles};
+  int err = nn::launch_sweep(a, B, splits, st);
+  if (err != 0) return err;
+  const int q_blocks = (M + kRowThreads - 1) / kRowThreads;
+  gicp_rows<<<dim3(q_blocks, B), kRowThreads, 0, st>>>(
       q_pts, q_mask, mask_batched, q_cov6, td, target_batched, r2,
-      part_d2, part_idx, block_part, M, N, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gicp_sum<<<B, 32, 0, st>>>(block_part, out, q_blocks);
+      keys, block_part, tickets, out, M, N);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gicp_tile_size() { return kTile; }
-extern "C" int gicp_block_size() { return kThreads; }
+extern "C" int gicp_tile_size() { return nn::kTile; }
+extern "C" int gicp_group_size() { return nn::kGroup; }
+extern "C" int gicp_block_size() { return kRowThreads; }

@@ -129,7 +129,12 @@ class LidarOdometry:
             print("LIDAR ODOMETRY WARNING: measurements came out of order!")
             return False
         prepared = self.registration.prepare_target(self.preprocess(cloud))
-        result = self.registration.register(self.prev.cloud, prepared, self._eye())
+        # The source is the previous target: its layout's Morton order is
+        # the source's query order.
+        prev_target = self.prev.kernel_target
+        result = self.registration.register(
+            self.prev.cloud, prepared, self._eye(),
+            source_order=None if prev_target is None else prev_target[-1].order)
         ok = result.fitness > 0.1   # magic gate, Odometry.cpp:51
         if self._initial_transform is not None:
             cum_new = self._cum_dev

@@ -33,12 +33,13 @@ class ProcessedScans(NamedTuple):
 
 
 def _patch_prepare(map_cloud: PointCloud, cropper, pose_t: torch.Tensor,
-                   cell: float, patch_capacity: int, with_covs: bool) -> PreparedCloud:
+                   cell: float, patch_capacity: int, with_covs: bool,
+                   with_kernel_target: bool = False) -> PreparedCloud:
     """Crop the map patch at the pose -> compact -> registration target."""
     patch = map_cloud.with_(
         mask=map_cloud.mask & cropper.is_inside(map_cloud.points, pose_t))
     return _prepare_target_fn(pclib.compact_to(patch, patch_capacity), cell,
-                              with_covs=with_covs)
+                              with_covs=with_covs, with_kernel_target=with_kernel_target)
 
 
 class ScanToMapIcp:
@@ -82,7 +83,8 @@ class ScanToMapIcp:
         cell = max(self.params.scan_matcher.icp.max_correspondence_distance, 1e-6)
         prepared = _patch_prepare(active_submap.map_cloud, self.scan_matcher_cropper,
                                   pose_t, cell, self.patch_capacity,
-                                  self.registration.reg_type == "GeneralizedIcp")
+                                  self.registration.reg_type == "GeneralizedIcp",
+                                  self.registration.needs_kernel_target())
         if not torch.is_tensor(initial_guess):
             initial_guess = to_device(initial_guess, self.device)
         return self.registration.register(scan, prepared,

@@ -2,9 +2,10 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface, loaded with ``ctypes``.  Libraries go to ``_build/`` inside
-the package (listed in ``.gitignore``), named by a hash of the source and the
-flags, and are built at first use: nothing is built when a module is
-imported, and nothing comes from outside the checkout.  ``build_all`` starts
+the package (listed in ``.gitignore``), named by a hash of the source, the
+``csrc`` headers it includes and the flags, and are built at first use:
+nothing is built when a module is imported, and nothing comes from outside
+the checkout.  ``build_all`` starts
 one ``nvcc`` per source at once, so a cold start costs the slowest build, not
 the sum.
 
@@ -19,6 +20,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from typing import Dict, List, Optional, Tuple
 
@@ -47,10 +49,27 @@ def launch_total(kernel: str, counts: Optional[Dict] = None) -> int:
                if k == kernel)
 
 
+def _sources(path: str, seen: List[str]) -> List[str]:
+    """``path`` and every ``csrc`` header it includes with quotes, in the
+    order first included."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read().decode()
+    for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+        _sources(os.path.join(os.path.dirname(path), inc), seen)
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:12]}.so")
+    """The library's path, named by a hash of its source, the headers it
+    includes and the flags: editing any of them builds anew."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(os.path.join(CSRC_DIR, name + ".cu"), []):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str) -> Optional[subprocess.Popen]:

@@ -10,18 +10,16 @@ and (inlier count, inlier d2 sum) in row 7.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Tuple
 
 import torch
 
-from open3d_slam_torch.ops import cuda_build
+from open3d_slam_torch.ops import cuda_build, nn_layout
 
 _BIG = 3.0e38
 _DIAG_EPS = 1e-6
 _SQRT_TINY = 1e-12
 _PLAIN_CHUNK = 1024
-TILE_N = 256   # target tile of the CUDA kernel; t_aabb rows are per tile
 
 
 def _nn_plain(q: torch.Tensor, td: torch.Tensor, tv: torch.Tensor):
@@ -72,9 +70,10 @@ def _gicp_rows(q: torch.Tensor, qc: torch.Tensor, S: torch.Tensor,
 
 
 def gicp_normal_eq_plain(q_pts, q_mask_f, q_cov6, td, tv, r2,
-                         t_aabb=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel.  ``t_aabb`` is accepted and
-    ignored: the tile skip is exact, so the result does not depend on it."""
+                         t_aabb=None, layout=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel.  ``t_aabb`` and ``layout`` are
+    accepted and ignored: the tile skip is exact, so the result does not
+    depend on them."""
     b, m, _ = q_pts.shape
     out = torch.zeros((b, 8, 128), dtype=torch.float32, device=q_pts.device)
     for i in range(b):
@@ -90,39 +89,43 @@ def gicp_normal_eq_plain(q_pts, q_mask_f, q_cov6, td, tv, r2,
     return out
 
 
-def _launch_gicp(q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb) -> torch.Tensor:
+def _launch_gicp(q_pts, q_mask_f, q_cov6, td, tv, r2,
+                 layout: nn_layout.SweepLayout) -> torch.Tensor:
     lib = cuda_build.load("gicp")
     fn = lib.gicp_normal_eq_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3 +
-                   [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
-                   [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] +
+                   [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+                   [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                   [ctypes.c_int] * 4 + [ctypes.c_void_p])
     b, m, _ = q_pts.shape
     n = td.shape[-1]
     dev = q_pts.device
+    t_pts, t_boxes = layout.target.pts, layout.target.boxes
+    n_tiles = t_boxes.shape[-2]
     q_blocks = -(-m // lib.gicp_block_size())
-    n_tiles = max(1, -(-n // TILE_N))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, math.ceil(4 * sms / (q_blocks * b)))
-    tiles_per_split = max(1, -(-n_tiles // want))
-    splits = -(-n_tiles // tiles_per_split)
-    part_d2 = torch.empty((b, splits, m), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((b, splits, m), dtype=torch.int32, device=dev)
+    if (lib.gicp_tile_size(), lib.gicp_group_size()) != (nn_layout.TILE, nn_layout.GROUP):
+        raise RuntimeError("csrc/nn_sweep.cuh and ops/nn_layout.py disagree on the "
+                           "tile or group size")
+    splits = nn_layout.plan_splits(-(-m // nn_layout.GROUP), b, n_tiles, dev)
     block_part = torch.empty((b, q_blocks, 30), dtype=torch.float32, device=dev)
-    out = torch.zeros((b, 8, 128), dtype=torch.float32, device=dev)
+    out = torch.empty((b, 8, 128), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keys, tickets = nn_layout.scratch(dev, stream, b, m)
     err = fn(q_pts.data_ptr(), q_mask_f.data_ptr(), int(q_mask_f.dim() == 3),
-             q_cov6.data_ptr(), td.data_ptr(), tv.data_ptr(), int(td.dim() == 3),
-             r2.data_ptr(), 0 if t_aabb is None else t_aabb.data_ptr(),
-             part_d2.data_ptr(), part_idx.data_ptr(), block_part.data_ptr(),
-             out.data_ptr(), b, m, n, splits, tiles_per_split,
-             torch.cuda.current_stream(dev).cuda_stream)
+             layout.query_order.data_ptr(), int(layout.query_order.dim() == 2),
+             t_pts.data_ptr(), t_boxes.data_ptr(), n_tiles,
+             q_cov6.data_ptr(), td.data_ptr(), int(td.dim() == 3), r2.data_ptr(),
+             keys.data_ptr(), block_part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+             b, m, n, splits, stream)
     cuda_build.check(err, "gicp_normal_eq")
     return out
 
 
 def gicp_normal_eq(q_pts: torch.Tensor, q_mask_f: torch.Tensor,
                    q_cov6: torch.Tensor, td: torch.Tensor, tv: torch.Tensor,
-                   r2: torch.Tensor, t_aabb: Optional[torch.Tensor] = None
+                   r2: torch.Tensor, t_aabb: Optional[torch.Tensor] = None,
+                   layout: Optional[nn_layout.SweepLayout] = None
                    ) -> torch.Tensor:
     """Batched fused GICP normal equations (the JAX kernel's signature).
 
@@ -130,25 +133,29 @@ def gicp_normal_eq(q_pts: torch.Tensor, q_mask_f: torch.Tensor,
     q_cov6 (B, M, 6) source covariance entries already rotated (R C R^T);
     td (9, N) or (B, 9, N) target rows [x, y, z, c00, c01, c02, c11, c12,
     c22] (2-D is shared across the batch); tv (1, N) or (B, 1, N) target
-    validity; r2 (1, 1) squared max correspondence distance; t_aabb optional
-    (N / TILE_N, 8) per-tile boxes from ``tile_aabbs(..., TILE_N)``.
-    Returns (B, 8, 128)."""
+    validity; r2 (1, 1) squared max correspondence distance; t_aabb, the
+    JAX signature's per-tile boxes, is accepted and not used: the kernel
+    skips by the boxes of ``layout``, the sweep's order of targets and
+    queries (``nn_layout.SweepLayout``: the target layout that
+    ``prepare_target`` returned with td and tv, and
+    ``nn_layout.query_order``), made here from the inputs when not given.
+    Returns (B, 8, 128); its inlier counts are NaN when the query order
+    leaves out a valid query."""
     dev = q_pts.device
     if dev.type == "cpu":
         return gicp_normal_eq_plain(q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb)
     if dev.type != "cuda":
         raise RuntimeError(f"gicp_normal_eq: no kernel for device {dev}")
-    tensors = [q_pts, q_mask_f, q_cov6, td, tv, r2] + (
-        [] if t_aabb is None else [t_aabb])
-    for t in tensors:
+    for t in (q_pts, q_mask_f, q_cov6, td, tv, r2):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("gicp_normal_eq: every input must be a contiguous "
                              f"float32 tensor on {dev}")
-    n = td.shape[-1]
-    if t_aabb is not None and tuple(t_aabb.shape) != (-(-n // TILE_N), 8):
-        raise ValueError(f"t_aabb must hold one row per {TILE_N}-point tile")
-    cuda_build.count_launch("gicp_normal_eq", (q_pts.shape[0], q_pts.shape[1], n))
-    return _launch_gicp(q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb)
+    b, m, n = q_pts.shape[0], q_pts.shape[1], td.shape[-1]
+    if layout is None:
+        layout = nn_layout.layout_for(q_pts, q_mask_f, td, tv)
+    nn_layout.check_layout(layout, b, m, n, dev, td, tv)
+    cuda_build.count_launch("gicp_normal_eq", (b, m, n))
+    return _launch_gicp(q_pts, q_mask_f, q_cov6, td, tv, r2, layout)
 
 
 def plain_disagreement(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -188,7 +195,7 @@ def unpack(out: torch.Tensor):
 
 
 def tile_aabbs(points_sorted: torch.Tensor, valid: torch.Tensor,
-               block_n: int = TILE_N) -> torch.Tensor:
+               block_n: int) -> torch.Tensor:
     """Per-target-tile boxes (N / block_n, 8): [min xyz, max xyz, 0, 0];
     invalid points contribute +/-BIG so an all-invalid tile overlaps nothing."""
     n = points_sorted.shape[0]
@@ -217,8 +224,11 @@ def rotate_cov6(R: torch.Tensor, cov6: torch.Tensor) -> torch.Tensor:
 
 
 def prepare_target(points_sorted: torch.Tensor, covs_sorted: torch.Tensor,
-                   valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Loop-invariant target arrays: td (..., 9, N), tv (..., 1, N)."""
+                   valid: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, nn_layout.TargetLayout]:
+    """Loop-invariant target arrays: td (..., 9, N), tv (..., 1, N), and
+    the sweep's target layout, bound to td and tv."""
     td = torch.cat([points_sorted.transpose(-1, -2),
-                    cov6_from_full(covs_sorted).transpose(-1, -2)], dim=-2)
-    return td.contiguous(), valid.to(torch.float32)[..., None, :].contiguous()
+                    cov6_from_full(covs_sorted).transpose(-1, -2)], dim=-2).contiguous()
+    tv = valid.to(torch.float32)[..., None, :].contiguous()
+    return td, tv, nn_layout.bind(nn_layout.target_layout(points_sorted, valid), td, tv)

@@ -12,13 +12,11 @@ element has its own.
 from __future__ import annotations
 
 import ctypes
-import inspect
-import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from open3d_slam_torch.ops import cuda_build
+from open3d_slam_torch.ops import cuda_build, nn_layout
 from open3d_slam_torch.ops.cuda_gicp import plain_disagreement, unpack  # noqa: F401
 
 _BIG = 3.0e38
@@ -62,8 +60,10 @@ def _p2l_rows(q: torch.Tensor, n: torch.Tensor, c: torch.Tensor,
     return G * wf
 
 
-def p2l_normal_eq_plain(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2) -> torch.Tensor:
-    """Plain PyTorch version of the kernel.  Distances in the kernel's
+def p2l_normal_eq_plain(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2,
+                        layout=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel; ``layout`` is accepted and
+    ignored (the kernel's skip is exact).  Distances in the kernel's
     elementwise order (no matmul, which would sum in another order and flip
     inliers); the Gram of each batch element as one product of its float32
     rows, summed in float64, so that the reference a kernel is held against
@@ -93,32 +93,35 @@ def p2l_normal_eq_plain(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2) -> torch.Tensor:
     return out
 
 
-def _launch_p2l(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2) -> torch.Tensor:
+def _launch_p2l(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2,
+                layout: nn_layout.SweepLayout) -> torch.Tensor:
     lib = cuda_build.load("icp")
     fn = lib.p2l_normal_eq_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4 +
-                   [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
-                   [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] +
+                   [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] +
+                   [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                   [ctypes.c_int] * 4 + [ctypes.c_void_p])
     b, m, _ = q_pts.shape
     n = t_t.shape[-1]
     dev = q_pts.device
+    t_pts, t_boxes = layout.target.pts, layout.target.boxes
+    n_tiles = t_boxes.shape[-2]
     q_blocks = -(-m // lib.p2l_block_size())
-    n_tiles = max(1, -(-n // lib.p2l_tile_size()))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, math.ceil(4 * sms / (q_blocks * b)))
-    tiles_per_split = max(1, -(-n_tiles // want))
-    splits = -(-n_tiles // tiles_per_split)
-    part_d2 = torch.empty((b, splits, m), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((b, splits, m), dtype=torch.int32, device=dev)
+    if (lib.p2l_tile_size(), lib.p2l_group_size()) != (nn_layout.TILE, nn_layout.GROUP):
+        raise RuntimeError("csrc/nn_sweep.cuh and ops/nn_layout.py disagree on the "
+                           "tile or group size")
+    splits = nn_layout.plan_splits(-(-m // nn_layout.GROUP), b, n_tiles, dev)
     block_part = torch.empty((b, q_blocks, 30), dtype=torch.float32, device=dev)
-    out = torch.zeros((b, 8, 128), dtype=torch.float32, device=dev)
+    out = torch.empty((b, 8, 128), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keys, tickets = nn_layout.scratch(dev, stream, b, m)
     err = fn(q_pts.data_ptr(), q_mask_f.data_ptr(), int(q_mask_f.dim() == 3),
-             t_t.data_ptr(), tn_t.data_ptr(), tc.data_ptr(), tv.data_ptr(),
-             int(t_t.dim() == 3), r2.data_ptr(), part_d2.data_ptr(),
-             part_idx.data_ptr(), block_part.data_ptr(), out.data_ptr(),
-             b, m, n, splits, tiles_per_split,
-             torch.cuda.current_stream(dev).cuda_stream)
+             layout.query_order.data_ptr(), int(layout.query_order.dim() == 2),
+             t_pts.data_ptr(), t_boxes.data_ptr(), n_tiles,
+             tn_t.data_ptr(), tc.data_ptr(), int(t_t.dim() == 3), r2.data_ptr(),
+             keys.data_ptr(), block_part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+             b, m, n, splits, stream)
     cuda_build.check(err, "p2l_normal_eq")
     return out
 
@@ -141,7 +144,8 @@ def _check_layout(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2):
 
 def p2l_normal_eq(q_pts: torch.Tensor, q_mask_f: torch.Tensor,
                   t_t: torch.Tensor, tn_t: torch.Tensor, tc: torch.Tensor,
-                  tv: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+                  tv: torch.Tensor, r2: torch.Tensor,
+                  layout: Optional[nn_layout.SweepLayout] = None) -> torch.Tensor:
     """Batched fused point-to-plane normal equations (the JAX kernel's
     signature, without its block-size constraints).
 
@@ -149,8 +153,12 @@ def p2l_normal_eq(q_pts: torch.Tensor, q_mask_f: torch.Tensor,
     source validity; t_t, tn_t (3, N) or (B, 3, N) target points and unit
     normals, transposed; tc (1, N) or (B, 1, N) plane offsets n.t; tv (1, N)
     or (B, 1, N) target validity (2-D target arrays are shared across the
-    batch); r2 (1, 1) squared max correspondence distance.  Returns
-    (B, 8, 128)."""
+    batch); r2 (1, 1) squared max correspondence distance; ``layout`` the
+    sweep's order of targets and queries (``nn_layout.SweepLayout``: the
+    target layout that ``prepare_target`` returned with t_t and tv, and
+    ``nn_layout.query_order``), made here from the inputs when not given.
+    Returns (B, 8, 128); its inlier counts are NaN when the query order
+    leaves out a valid query."""
     dev = q_pts.device
     _check_layout(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2)
     if dev.type == "cpu":
@@ -161,28 +169,27 @@ def p2l_normal_eq(q_pts: torch.Tensor, q_mask_f: torch.Tensor,
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("p2l_normal_eq: every input must be a contiguous "
                              f"float32 tensor on {dev}")
-    cuda_build.count_launch("p2l_normal_eq",
-                            (q_pts.shape[0], q_pts.shape[1], t_t.shape[-1]))
-    return _launch_p2l(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2)
-
-
-def p2l_inputs(*args, **kwargs):
-    """The seven inputs of a recorded ``p2l_normal_eq`` call, in order,
-    however they were passed (``chip_smoke.py`` hands them to the plain
-    version and to the bound)."""
-    return tuple(inspect.signature(p2l_normal_eq).bind(*args, **kwargs).args)
+    b, m, n = q_pts.shape[0], q_pts.shape[1], t_t.shape[-1]
+    if layout is None:
+        layout = nn_layout.layout_for(q_pts, q_mask_f, t_t, tv)
+    nn_layout.check_layout(layout, b, m, n, dev, t_t, tv)
+    cuda_build.count_launch("p2l_normal_eq", (b, m, n))
+    return _launch_p2l(q_pts, q_mask_f, t_t, tn_t, tc, tv, r2, layout)
 
 
 def prepare_target(points_sorted: torch.Tensor, normals_sorted: torch.Tensor,
                    valid: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor, nn_layout.TargetLayout]:
     """The kernel's loop-invariant target arrays from points/normals
     (..., N, 3) and validity (..., N): t_t, tn_t (..., 3, N), tc, tv
-    (..., 1, N).  tc = n . t summed x, then y, then z, as
-    ``jnp.sum(p * n, axis=-1)`` sums three terms."""
+    (..., 1, N), and the sweep's target layout, bound to t_t and tv.
+    tc = n . t summed x, then y, then z, as ``jnp.sum(p * n, axis=-1)``
+    sums three terms."""
     pn = points_sorted * normals_sorted
     tc = pn[..., 0] + pn[..., 1] + pn[..., 2]
-    return (points_sorted.transpose(-1, -2).contiguous(),
-            normals_sorted.transpose(-1, -2).contiguous(),
-            tc[..., None, :].contiguous(),
-            valid.to(torch.float32)[..., None, :].contiguous())
+    t_t = points_sorted.transpose(-1, -2).contiguous()
+    tv = valid.to(torch.float32)[..., None, :].contiguous()
+    return (t_t, normals_sorted.transpose(-1, -2).contiguous(),
+            tc[..., None, :].contiguous(), tv,
+            nn_layout.bind(nn_layout.target_layout(points_sorted, valid), t_t, tv))

@@ -23,12 +23,12 @@ as a check on every iteration, with a quarter of the host syncs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from open3d_slam_torch.ops import cuda_gicp, cuda_icp, hashgrid
+from open3d_slam_torch.ops import cuda_gicp, cuda_icp, hashgrid, nn_layout
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils import se3
 from open3d_slam_torch.utils.device import pull_bool, to_device, to_host
@@ -151,22 +151,30 @@ def _stats(out: torch.Tensor, n_src: torch.Tensor):
     return JtJ, Jtr, fit, rmse
 
 
+def _source_order(source: PointCloud, order: Optional[torch.Tensor]) -> torch.Tensor:
+    """The sweep's query order of ``source``: ``order`` when given (the
+    Morton order of the same points and mask, e.g. from the layout of the
+    cloud as an earlier target), else made here."""
+    return order if order is not None else nn_layout.query_order(source.points, source.mask)
+
+
 def _r2(max_dist, device) -> torch.Tensor:
     return torch.full((1, 1), float(max_dist), dtype=torch.float32, device=device) ** 2
 
 
 def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
                           max_iterations, relative_fitness, relative_rmse,
-                          t_aabb=None) -> RegistrationResult:
+                          layout=None) -> RegistrationResult:
     """Batched GICP GN loop around ``cuda_gicp.gicp_normal_eq``.  Source
     covariances are rotated outside the kernel (R C R^T), the NN search and
-    the Mahalanobis normal equations inside; the exp retraction."""
+    the Mahalanobis normal equations inside; the exp retraction.  ``layout``
+    (``nn_layout.SweepLayout``) holds for every iteration."""
     r2 = _r2(max_dist, points.device)
 
     def stats_eq(T):
         pts = se3.transform_points(T, points).contiguous()
         qc = cuda_gicp.rotate_cov6(T[..., :3, :3], qcov6).contiguous()
-        return _stats(cuda_gicp.gicp_normal_eq(pts, maskf, qc, td, tv, r2, t_aabb),
+        return _stats(cuda_gicp.gicp_normal_eq(pts, maskf, qc, td, tv, r2, None, layout),
                       n_src)
 
     return _gauss_newton(stats_eq, inits, max_iterations, relative_fitness,
@@ -175,16 +183,17 @@ def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
 
 def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dist,
                          max_iterations, relative_fitness, relative_rmse,
-                         use_exp_retraction=False) -> RegistrationResult:
+                         use_exp_retraction=False, layout=None) -> RegistrationResult:
     """Batched point-to-plane GN loop around ``cuda_icp.p2l_normal_eq``:
     one kernel call per iteration gives the correspondences, the 6x6 normal
     equations and the fitness statistics of the whole batch.  The Euler-XYZ
-    retraction unless ``use_exp_retraction``."""
+    retraction unless ``use_exp_retraction``.  ``layout``
+    (``nn_layout.SweepLayout``) holds for every iteration."""
     r2 = _r2(max_dist, inits.device)
 
     def stats_eq(T):
         pts = se3.transform_points(T, points).contiguous()
-        return _stats(cuda_icp.p2l_normal_eq(pts, maskf, t_t, tn_t, tc, tv, r2),
+        return _stats(cuda_icp.p2l_normal_eq(pts, maskf, t_t, tn_t, tc, tv, r2, layout),
                       n_src)
 
     return _gauss_newton(stats_eq, inits, max_iterations, relative_fitness,
@@ -197,7 +206,10 @@ def batched_icp_point_to_plane(source: PointCloud, target_grid: HashGrid,
                                max_iterations: int = 30,
                                relative_fitness: float = 1e-6,
                                relative_rmse: float = 1e-6,
-                               use_exp_retraction: bool = False) -> RegistrationResult:
+                               use_exp_retraction: bool = False,
+                               prepared: Optional[tuple] = None,
+                               source_order: Optional[torch.Tensor] = None
+                               ) -> RegistrationResult:
     """Natively batched fused point-to-plane ICP (kernel K4).  Two layouts,
     told apart by rank:
 
@@ -207,31 +219,40 @@ def batched_icp_point_to_plane(source: PointCloud, target_grid: HashGrid,
         ``inits`` is batched (multi-start localization: the map is stored
         once and swept once per kernel call for the whole batch).
 
-    The target grid must carry normals."""
-    if target_grid.normals_sorted is None:
-        raise ValueError("point-to-plane ICP needs a target grid with normals")
-    valid = target_grid.hashes_sorted != INT32_MAX
-    t_t, tn_t, tc, tv = cuda_icp.prepare_target(
-        target_grid.points_sorted, target_grid.normals_sorted, valid)
+    The target grid must carry normals.  The kernel's target arrays and
+    sweep layout are made once here, unless given: ``prepared``, what
+    ``cuda_icp.prepare_target`` returned for the grid (the grid is then not
+    read), and ``source_order``, the Morton order of the untransformed
+    source."""
+    if prepared is None:
+        if target_grid.normals_sorted is None:
+            raise ValueError("point-to-plane ICP needs a target grid with normals")
+        prepared = cuda_icp.prepare_target(target_grid.points_sorted,
+                                           target_grid.normals_sorted,
+                                           target_grid.hashes_sorted != INT32_MAX)
+    t_t, tn_t, tc, tv, t_layout = prepared
+    layout = nn_layout.SweepLayout(t_layout, _source_order(source, source_order))
     maskf = source.mask.to(torch.float32)[..., None].contiguous()
     n_src = source.mask.to(torch.float32).sum(-1)
     return _icp_p2l_fused_batch(
         source.points, maskf, n_src, t_t, tn_t, tc, tv,
         inits.to(torch.float32), max_correspondence_distance, max_iterations,
-        relative_fitness, relative_rmse, use_exp_retraction)
+        relative_fitness, relative_rmse, use_exp_retraction, layout)
 
 
 def icp_point_to_plane(source: PointCloud, target_grid: HashGrid, init: torch.Tensor,
                        max_correspondence_distance, max_iterations: int = 50,
                        relative_fitness: float = 1e-6, relative_rmse: float = 1e-6,
-                       use_exp_retraction: bool = False) -> RegistrationResult:
+                       use_exp_retraction: bool = False,
+                       prepared: Optional[tuple] = None,
+                       source_order: Optional[torch.Tensor] = None) -> RegistrationResult:
     """Point-to-plane ICP of ``source`` against a target grid with normals,
     as Open3D ``RegistrationICP`` with ``TransformationEstimationPointToPlane``
     (``CloudRegistration.cpp:44-48``), through kernel K4."""
     res = batched_icp_point_to_plane(
         source.with_(points=source.points[None]), target_grid, init[None],
         max_correspondence_distance, max_iterations, relative_fitness,
-        relative_rmse, use_exp_retraction)
+        relative_rmse, use_exp_retraction, prepared, source_order)
     return res[0]
 
 
@@ -239,24 +260,30 @@ def icp_generalized(source: PointCloud, source_covs: torch.Tensor,
                     target_grid: HashGrid, target_covs_sorted: torch.Tensor,
                     init: torch.Tensor, max_correspondence_distance,
                     max_iterations: int = 50, relative_fitness: float = 1e-6,
-                    relative_rmse: float = 1e-6) -> RegistrationResult:
+                    relative_rmse: float = 1e-6,
+                    prepared: Optional[tuple] = None,
+                    source_order: Optional[torch.Tensor] = None) -> RegistrationResult:
     """Generalized (plane-to-plane) ICP, as Open3D
     ``RegistrationGeneralizedICP`` (``CloudRegistration.cpp:16-30``), through
-    the fused kernel with the exact per-tile AABB skip (the targets arrive
-    spatially sorted, in packed-voxel order)."""
-    valid = target_grid.hashes_sorted != INT32_MAX
-    td, tv = cuda_gicp.prepare_target(target_grid.points_sorted,
-                                      target_covs_sorted, valid)
-    n = target_grid.capacity
-    t_aabb = (cuda_gicp.tile_aabbs(target_grid.points_sorted, valid).contiguous()
-              if n % cuda_gicp.TILE_N == 0 else None)
+    the fused kernel with its exact tile skip.  The targets arrive in the
+    grid's order (a hash order from ``hashgrid.build``, the packed-voxel
+    order of the cloud from ``cloud_registration``), which keeps no tile of
+    targets compact; the kernel sweeps a Morton layout of the target and of
+    the untransformed source.  Both are made here unless given:
+    ``prepared``, what ``cuda_gicp.prepare_target`` returned for the grid
+    and its covariances (they are then not read), and ``source_order``."""
+    if prepared is None:
+        prepared = cuda_gicp.prepare_target(target_grid.points_sorted, target_covs_sorted,
+                                            target_grid.hashes_sorted != INT32_MAX)
+    td, tv, t_layout = prepared
+    layout = nn_layout.SweepLayout(t_layout, _source_order(source, source_order))
     maskf = source.mask.to(torch.float32)[:, None].contiguous()
     qcov6 = cuda_gicp.cov6_from_full(source_covs)
     n_src = source.mask.to(torch.float32).sum()
     res = _icp_gicp_fused_batch(
         source.points[None], maskf, n_src, qcov6[None], td, tv,
         init.to(torch.float32)[None], max_correspondence_distance,
-        max_iterations, relative_fitness, relative_rmse, t_aabb=t_aabb)
+        max_iterations, relative_fitness, relative_rmse, layout=layout)
     return res[0]
 
 

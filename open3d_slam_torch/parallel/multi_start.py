@@ -27,7 +27,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from open3d_slam_torch.ops import hashgrid, normals as normals_ops, voxel
+from open3d_slam_torch.ops import cuda_icp, hashgrid, nn_layout, normals as normals_ops, voxel
 from open3d_slam_torch.ops import registration as reg_ops
 from open3d_slam_torch.utils import pointcloud as pclib
 from open3d_slam_torch.utils.config import SlamParameters
@@ -128,8 +128,14 @@ def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
         scan_small, coarse_grid, inits, coarse_corr_dist,
         max_iterations=coarse_iters)
     clock.mark("coarse")
+    # The map's K4 target arrays and sweep layout, and the rank scan's
+    # order, serve three stages.
+    prepared = cuda_icp.prepare_target(grid.points_sorted, grid.normals_sorted,
+                                       grid.hashes_sorted != hashgrid.INT32_MAX)
+    rank_order = nn_layout.query_order(scan_rank.points, scan_rank.mask)
     tight = reg_ops.batched_icp_point_to_plane(
-        scan_rank, grid, coarse.transformation, max_corr_dist, max_iterations=0)
+        scan_rank, grid, coarse.transformation, max_corr_dist, max_iterations=0,
+        prepared=prepared, source_order=rank_order)
     clock.mark("rank")
     score = tight.fitness - tight.inlier_rmse
     best_idx = torch.sort(score, descending=True, stable=True).indices[:top_k]
@@ -139,12 +145,12 @@ def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
     clock.mark("mid")
     refined = reg_ops.batched_icp_point_to_plane(
         scan_rank, grid, mid.transformation, max_corr_dist,
-        max_iterations=refine_iters)
+        max_iterations=refine_iters, prepared=prepared, source_order=rank_order)
     clock.mark("refine")
     win = torch.argmax(refined.fitness - refined.inlier_rmse)
     final = reg_ops.icp_point_to_plane(
         scan_full, grid, refined.transformation[win], max_corr_dist,
-        max_iterations=10)
+        max_iterations=10, prepared=prepared)
     clock.mark("final")
     return final.transformation, final.fitness
 

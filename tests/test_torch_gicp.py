@@ -68,7 +68,7 @@ def _jax_inputs(pb):
 
 def _torch_inputs(pb):
     T = lambda a: torch.from_numpy(np.array(a))
-    td, tv = tg.prepare_target(T(pb["tgt"]), T(pb["tgt_cov"]), T(pb["tmask"]))
+    td, tv, _ = tg.prepare_target(T(pb["tgt"]), T(pb["tgt_cov"]), T(pb["tmask"]))
     return (T(pb["src"])[None], T(pb["smask"]).to(torch.float32)[:, None],
             tg.cov6_from_full(T(pb["src_cov"]))[None], td, tv)
 
@@ -93,7 +93,7 @@ def test_gicp_normal_eq_plain_matches_pallas(problem, with_aabb):
     j_aabb = (jg.tile_aabbs(jnp.asarray(problem["tgt"]), jnp.asarray(problem["tmask"]), 128)
               if with_aabb else None)
     t_aabb = (tg.tile_aabbs(torch.from_numpy(problem["tgt"]),
-                            torch.from_numpy(problem["tmask"])) if with_aabb else None)
+                            torch.from_numpy(problem["tmask"]), 128) if with_aabb else None)
     want = np.asarray(jg.gicp_normal_eq(*jin, jnp.full((1, 1), r2, jnp.float32),
                                         t_aabb=j_aabb, block_m=64, block_n=128,
                                         interpret=True))

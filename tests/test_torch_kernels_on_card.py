@@ -2,7 +2,13 @@
 on the same card tensors, at the layouts the JAX signatures allow: one shared
 2-D target or one target per batch element, with and without the tile skip,
 sizes that do not fill the last block or tile; for K3 and K4 also every
-target masked and exact ties.
+target masked and exact ties.  K1 and K4 share one sweep (``nn_sweep.cuh``):
+both run with the layout their wrapper makes and with the main path's (one
+query order per batch element, or one for the whole batch), at the B = 1
+tracking shapes, with exact ties between targets in different Morton tiles,
+every target masked and every tile skipped; two calls on the same inputs
+are bit-equal, one call is two kernel launches, and a query order that
+leaves out a valid query gives a NaN inlier count.
 
 Marked ``cuda``: they skip without a CUDA card and ``nvcc``.  This file
 imports neither JAX nor the JAX package, so it runs on a card's machine that
@@ -26,7 +32,7 @@ import pytest
 import torch
 
 from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_icp as ti
-from open3d_slam_torch.ops import cuda_knn as tk
+from open3d_slam_torch.ops import cuda_knn as tk, nn_layout
 from open3d_slam_torch.ops import cuda_normals as tcn
 from open3d_slam_torch.ops import normals as tn
 from open3d_slam_torch.utils import pointcloud as tpc
@@ -77,19 +83,27 @@ def _gicp_problem(rng, dev, batch, m, n, shared_target):
             scale=0.05, size=(m, 3)).astype(np.float32)
         mask = rng.uniform(size=m) > 0.05
         srcs.append(_cloud_with_covs(pts, mask, dev))
-    prep = [tg.prepare_target(p, c, v) for p, v, c in tgts]
-    td = prep[0][0] if shared_target else torch.stack([t for t, _ in prep])
-    tv = prep[0][1] if shared_target else torch.stack([v for _, v in prep])
+    tp, tm, tc = (torch.stack(a) for a in zip(*tgts))
+    if shared_target:
+        tp, tm, tc = tp[0], tm[0], tc[0]
+    td, tv, t_lay = tg.prepare_target(tp, tc, tm)
     q = torch.stack([p for p, _, _ in srcs]).contiguous()
     qc = torch.stack([tg.cov6_from_full(c) for _, _, c in srcs]).contiguous()
     qm = torch.stack([v.to(torch.float32)[:, None] for _, v, _ in srcs])
     if shared_target and batch == 1:
         qm = qm[0]
-    aabb = None
-    if shared_target and n % tg.TILE_N == 0:
-        aabb = tg.tile_aabbs(tgts[0][0], tgts[0][1]).contiguous()
     r2 = torch.full((1, 1), 0.25, device=dev)
-    return (q, qm.contiguous(), qc, td.contiguous(), tv.contiguous(), r2), aabb
+    return (q, qm.contiguous(), qc, td, tv, r2), t_lay
+
+
+def _layouts(q, qm, t_lay):
+    """None (the wrapper makes its own), and the main path's: the target's
+    from ``prepare_target`` with the sources' Morton order, one per batch
+    element, or element 0's for the whole batch."""
+    b, m, _ = q.shape
+    qv = (qm.reshape(-1, m) > 0).expand(b, m)
+    return [None, nn_layout.SweepLayout(t_lay, nn_layout.query_order(q, qv)),
+            nn_layout.SweepLayout(t_lay, nn_layout.query_order(q[0], qv[0]))]
 
 
 @pytest.mark.cuda
@@ -97,19 +111,25 @@ def _gicp_problem(rng, dev, batch, m, n, shared_target):
     (1, 4096, 16384, True),     # one shared target, with the tile skip
     (3, 1000, 3000, False),     # a target per element; partial block/tile
     (2, 640, 2048, True),       # a shared target across a batch
+    (1, 16384, 16384, True),    # odometry
+    (1, 4096, 65536, True),     # scan-to-map
 ])
 def test_gicp_kernel_matches_plain_on_card(cuda_device, rng, batch, m, n, shared):
-    args, aabb = _gicp_problem(rng, cuda_device, batch, m, n, shared)
+    """With the layout the wrapper makes from its inputs, and with the
+    main path's (``_layouts``); two launches on the same inputs are
+    bit-equal."""
+    args, t_lay = _gicp_problem(rng, cuda_device, batch, m, n, shared)
     want = tg.gicp_normal_eq_plain(*args)
-    for t_aabb in ([None, aabb] if aabb is not None else [None]):
+    for lay in _layouts(args[0], args[1], t_lay):
         before = cuda_build.launches[("gicp_normal_eq", (batch, m, n))]
-        got = tg.gicp_normal_eq(*args, t_aabb)
+        got = tg.gicp_normal_eq(*args, None, lay)
         assert cuda_build.launches[("gicp_normal_eq", (batch, m, n))] == before + 1
         assert got.shape == (batch, 8, 128)
         assert float(want[:, 7, 0].min()) > 0.5 * m
         dis = tg.plain_disagreement(got, want)
         assert dis["n_in_equal"] and dis["rest_equal"], dis
         assert dis["gram"] <= 1e-5 and dis["d2s"] <= 1e-5, dis
+        assert torch.equal(got, tg.gicp_normal_eq(*args, None, lay))
 
 
 @pytest.mark.cuda
@@ -191,8 +211,11 @@ def _p2l_problem(rng, dev, batch, m, n, shared):
         mask[-(n // 50):] = False
         pc = tpc.PointCloud(torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
         tgts.append(tn.estimate_normals(pc, 1.0, max_nn=12))
-    prep = [ti.prepare_target(t.points, t.normals, t.mask) for t in tgts]
-    target = prep[0] if shared else tuple(torch.stack(a).contiguous() for a in zip(*prep))
+    tp, tnrm, tm = (torch.stack(a) for a in zip(*((t.points, t.normals, t.mask)
+                                                    for t in tgts)))
+    if shared:
+        tp, tnrm, tm = tp[0], tnrm[0], tm[0]
+    *target, t_lay = ti.prepare_target(tp, tnrm, tm)
     srcs = []
     for b in range(batch):
         base = tgts[0 if shared else b].points.cpu().numpy()
@@ -201,7 +224,7 @@ def _p2l_problem(rng, dev, batch, m, n, shared):
     q = torch.from_numpy(np.stack(srcs)).to(dev).contiguous()
     qm = torch.from_numpy((rng.uniform(size=(batch, m, 1)) > 0.05).astype(np.float32)).to(dev)
     qm = (qm[0] if shared else qm).contiguous()
-    return (q, qm) + target + (torch.full((1, 1), 0.25, device=dev),)
+    return (q, qm, *target, torch.full((1, 1), 0.25, device=dev)), t_lay
 
 
 def _p2l_on_card(args):
@@ -211,29 +234,37 @@ def _p2l_on_card(args):
     before = cuda_build.launches[key]
     got = ti.p2l_normal_eq(*args)
     assert cuda_build.launches[key] == before + 1
-    want = ti.p2l_normal_eq_plain(*args)
+    want = ti.p2l_normal_eq_plain(*args[:7])
     assert got.shape == want.shape == (args[0].shape[0], 8, 128)
     return got, want
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,m,n,shared", [
+    (1, 16384, 16384, True),    # odometry
+    (1, 4096, 65536, True),     # scan-to-map
     (1, 8192, 32768, True),     # the final registration: B = 1, target split
     (1, 32768, 65536, True),    # the refinement of an odometry constraint
     (64, 2048, 8192, True),     # a hypothesis batch against one map
     (3, 1000, 3001, False),     # a target per element; partial block/tile
 ])
 def test_p2l_kernel_matches_plain_on_card(cuda_device, rng, batch, m, n, shared):
-    got, want = _p2l_on_card(_p2l_problem(rng, cuda_device, batch, m, n, shared))
-    assert float(want[:, 7, 0].min()) > 0.5 * m
-    dis = ti.plain_disagreement(got, want)
-    assert dis["n_in_equal"] and dis["rest_equal"], dis
-    assert dis["gram"] <= 1e-5 and dis["d2s"] <= 1e-5, dis
+    """With the layout the wrapper makes from its inputs, and with the
+    main path's (``_layouts``); two launches on the same inputs are
+    bit-equal."""
+    args, t_lay = _p2l_problem(rng, cuda_device, batch, m, n, shared)
+    for lay in _layouts(args[0], args[1], t_lay):
+        got, want = _p2l_on_card(args + (lay,))
+        assert float(want[:, 7, 0].min()) > 0.5 * m
+        dis = ti.plain_disagreement(got, want)
+        assert dis["n_in_equal"] and dis["rest_equal"], dis
+        assert dis["gram"] <= 1e-5 and dis["d2s"] <= 1e-5, dis
+        assert torch.equal(got, ti.p2l_normal_eq(*args, lay))
 
 
 @pytest.mark.cuda
 def test_p2l_kernel_all_targets_masked_on_card(cuda_device, rng):
-    args = list(_p2l_problem(rng, cuda_device, 2, 300, 777, True))
+    args = list(_p2l_problem(rng, cuda_device, 2, 300, 777, True)[0])
     args[5] = torch.zeros_like(args[5])
     args[6] = torch.full((1, 1), 1e30, device=cuda_device)
     got, want = _p2l_on_card(tuple(args))
@@ -253,10 +284,115 @@ def test_p2l_kernel_breaks_ties_to_lowest_index_on_card(cuda_device):
     nrm[2800:, 0] = 1.0
     q = (base.repeat(50, 1) + 0.01)[None].contiguous()
     target = ti.prepare_target(pts, nrm, torch.ones(pts.shape[0], dtype=torch.bool,
-                                                    device=cuda_device))
+                                                    device=cuda_device))[:4]
     args = (q, torch.ones((200, 1), device=cuda_device)) + target + (
         torch.full((1, 1), 0.04, device=cuda_device),)
     got, want = _p2l_on_card(args)
     dis = ti.plain_disagreement(got, want)
     assert dis["n_in_equal"] and dis["gram"] <= 1e-5, dis
     assert float(got[0, 3, 3]) == 0.0 and float(got[0, 5, 5]) == 200.0
+
+
+def _lattice_ties(dev, m, seed=5):
+    """16384 targets on a 0.5 m lattice in a random index order, each with
+    its own normal and covariance, and m sources a quarter step off targets
+    in x: two lattice neighbours at d2 = 0.0625 exactly, the lower index
+    the winner wherever the two fall in Morton order (about half the time
+    it comes later, in another tile)."""
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(np.arange(32), np.arange(32), np.arange(16),
+                             indexing="ij"), -1).reshape(-1, 3) * 0.5
+    pts = g[rng.permutation(len(g))].astype(np.float32)
+    q = pts[rng.choice(len(pts), m, replace=False)] + np.float32([0.25, 0.0, 0.0])
+    nrm = rng.normal(size=pts.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    a = rng.normal(size=pts.shape).astype(np.float32)
+    covs = 0.01 * np.eye(3, dtype=np.float32) + 0.001 * a[:, :, None] * a[:, None, :]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)   # noqa: E731
+    return t(pts), t(nrm), t(covs), t(q)
+
+
+def _sweep_cases(dev, kernel, m=4096):
+    """(name, args, layout) of K1 or K4 on the lattice: the ties, every
+    target masked, and every tile skipped (the sources 100 m off the map)."""
+    pts, nrm, covs, q = _lattice_ties(dev, m)
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    qm = torch.ones((m, 1), device=dev)
+    r2 = torch.full((1, 1), 0.09, device=dev)
+    far = q + torch.tensor([100.0, 0.0, 0.0], device=dev)
+    cases = []
+    for name, src, tvalid in (("ties", q, valid), ("all_masked", q, ~valid),
+                              ("all_skipped", far, valid)):
+        if kernel == "p2l":
+            *target, t_lay = ti.prepare_target(pts, nrm, tvalid)
+            args = (src[None].contiguous(), qm, *target, r2)
+        else:
+            td, tv, t_lay = tg.prepare_target(pts, covs, tvalid)
+            qc = tg.cov6_from_full(covs[:m])[None].contiguous()
+            args = (src[None].contiguous(), qm, qc, td, tv, r2)
+        order = nn_layout.query_order(q, torch.ones(m, dtype=torch.bool, device=dev))
+        cases.append((name, args, nn_layout.SweepLayout(t_lay, order)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["p2l", "gicp"])
+def test_sweep_ties_masks_and_skips_on_card(cuda_device, kernel):
+    """Exact ties across Morton tiles go to the lower index (each target
+    has its own normal or covariance, so a wrong winner moves the Gram);
+    every target masked, or every tile skipped, gives zeros."""
+    mod = ti if kernel == "p2l" else tg
+    for name, args, layout in _sweep_cases(cuda_device, kernel):
+        want = (ti.p2l_normal_eq_plain(*args) if kernel == "p2l"
+                else tg.gicp_normal_eq_plain(*args))
+        got = (ti.p2l_normal_eq(*args, layout) if kernel == "p2l"
+               else tg.gicp_normal_eq(*args, None, layout))
+        dis = mod.plain_disagreement(got, want)
+        assert dis["n_in_equal"] and dis["rest_equal"], (name, dis)
+        assert dis["gram"] <= 1e-5 and dis["d2s"] <= 1e-5, (name, dis)
+        if name == "ties":
+            assert float(got[0, 7, 0]) == 4096.0
+            assert float(got[0, 7, 1]) == 0.0625 * 4096
+        else:
+            assert not bool(got.any()) and not bool(want.any()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["p2l", "gicp"])
+def test_one_call_is_two_kernel_launches_on_card(cuda_device, kernel):
+    """With the layout given, a wrapper call launches the sweep and the row
+    kernel and nothing else (the last row block writes the whole output)."""
+    _, args, layout = _sweep_cases(cuda_device, kernel, m=1024)[0]
+    call = ((lambda: ti.p2l_normal_eq(*args, layout)) if kernel == "p2l"
+            else (lambda: tg.gicp_normal_eq(*args, None, layout)))
+    first = call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        again = call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in sorted((e for e in prof.events() if e.device_type == cuda),
+                                    key=lambda e: e.time_range.start)]
+    assert len(names) == 2, names
+    assert "nn_sweep" in names[0] and "_rows" in names[1], names
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["p2l", "gicp"])
+def test_query_order_that_leaves_out_a_query_is_marked_on_card(cuda_device, kernel):
+    """A query order that names one query twice and so leaves a valid one
+    out, or names one outside [0, M), gives a NaN inlier count instead of a
+    silent outlier; the next call with the whole order is exact again."""
+    _, args, layout = _sweep_cases(cuda_device, kernel, m=1024)[0]
+    call = ((lambda lay: ti.p2l_normal_eq(*args, lay)) if kernel == "p2l"
+            else (lambda lay: tg.gicp_normal_eq(*args, None, lay)))
+    good = call(layout)
+    twice, outside = layout.query_order.clone(), layout.query_order.clone()
+    twice[5] = twice[6]
+    outside[5] = 1 << 20
+    for order in (twice, outside):
+        out = call(layout._replace(query_order=order))
+        assert bool(torch.isnan(out[0, 7, 0])) and not bool(torch.isnan(out[0, 7, 1]))
+        assert torch.equal(call(layout), good)
