@@ -36,7 +36,9 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
   9. holds each kernel against its plain PyTorch version on the card, on the
      inputs the runs last gave it at each of its shapes, and times both
      next to the least time the card could take (the bound); for K1 and K4
-     also the device time of each of a call's launches (``torch.profiler``);
+     also the device time of each of a call's launches (``torch.profiler``),
+     for K2's prepass also the matmul + topk chain it replaced, and for the
+     sweeps the share of pairs their skip leaves;
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
@@ -62,9 +64,10 @@ N_SKIP = 5                  # clouds the reference skips; used as warmup
 N_DETERMINISM = 10          # scans replayed again in sequential mode
 # The closures-off replay's poses on the scans this sequence renders to on
 # the card's host (both digests are printed; another host's math library
-# may render other scans, and then only the ATE is held).
+# may render other scans, and then only the ATE is held).  The K2 moments
+# kernel's summation order is part of them.
 SCANS_SHA1 = "c7037044da48c50c"
-POSES_SHA1 = "3f6e40f8b6e44980"
+POSES_SHA1 = "9a8aedaf9f6df5a6"
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -218,24 +221,91 @@ def gicp_entry(cuda_gicp, shape, n_launch, args, kwargs):
                 "library_ms": None}
 
 
+def k2_swept_pairs(query_points, points, mask, layout, r2, centred):
+    """Pairs a K2 kernel's skip leaves at its granularity (64 queries x 64
+    support points) for per-query r2 (M,), with the kernel's boxes: those
+    of the coordinates as given (the prepass) or centred on the layout's
+    centroid, as the moments kernel centres them."""
+    import torch
+    from open3d_slam_torch.ops import nn_layout
+    q, target = query_points, layout.target
+    if centred:
+        c = layout.centroid
+        q = query_points - c
+        boxes = target.boxes.clone()
+        boxes[:, 0:3] -= c
+        boxes[:, 3:6] -= c
+        target = target._replace(boxes=boxes)
+    ones = torch.ones((q.shape[0], 1), device=q.device)
+    need = nn_layout.tile_need(q[None], ones, nn_layout.SweepLayout(target, layout.query_order),
+                               r2)
+    return int(need.sum().item()) * nn_layout.GROUP * nn_layout.TILE
+
+
+def kth_entry(cuda_normals, shape, n_launch, args, kwargs):
+    import torch
+    bound = inspect.signature(cuda_normals.kth_neighbor_d2_within).bind(*args, **kwargs)
+    bound.apply_defaults()
+    query_points, points, mask, k, radius, layout = bound.args
+    layout = layout or cuda_normals.normals_layout(query_points, points, mask)
+    m, n = shape
+    k = min(k, n)
+    cap = float(torch.tensor(float(radius)) ** 2)
+    got = cuda_normals.kth_neighbor_d2_within(*bound.args)
+    want = cuda_normals.kth_neighbor_d2_within_plain(query_points, points, mask, k, cap)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = torch.equal(got, want)
+    ms = time_ms(lambda: cuda_normals.kth_neighbor_d2_within(*bound.args), 20)
+    plain = time_ms(lambda: cuda_normals.kth_neighbor_d2_within_plain(
+        query_points, points, mask, k, cap), 3)
+    chain = time_ms(lambda: cuda_normals.kth_neighbor_d2_at(query_points, points, mask, k), 3)
+    # The least sweep: the (group, tile) pairs within each query's final
+    # min(r^2, d_k^2) (the kernel also sweeps the tiles that overlap the
+    # group's box and those within the expansion form's rounding margin).
+    pairs = k2_swept_pairs(query_points, points, mask, layout, want, centred=False)
+    # 8 flops a pair (the dot's 3 multiply-adds, |t|^2 shared, the sum, the
+    # 2x and the difference) and the compare; queries, support and mask
+    # read once, the output written once.
+    b_ms, b_by = bound_ms(12 * m + 13 * n + 4 * m, 9.0 * pairs)
+    print(f"K2 kth_neighbor_d2_within {m}x{n} (k {k}): equal to plain {ok}, max abs err "
+          f"{err:.3e} (exact required), {ms:.4f} ms vs plain {plain:.4f} ms, the old "
+          f"matmul + topk chain {chain:.4f} ms, bound {b_ms:.5f} ms ({b_by}; pairs within "
+          f"the final threshold {pairs} of {m * n}, {100.0 * pairs / (m * n):.2f}%)")
+    return ok, {"name": f"kth_neighbor_d2_within[{m}x{n}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/normals.cu",
+                "replaces": "open3d_slam_tpu/ops/pallas_normals.py:153",
+                "launches": n_launch, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+
+
 def moments_entry(cuda_normals, shape, n_launch, args, kwargs):
     import torch
-    out_k = cuda_normals.radius_moments_at(*args, **kwargs)
-    inputs = cuda_normals.moment_inputs(*args, **kwargs)
+    bound = inspect.signature(cuda_normals.radius_moments_at).bind(*args, **kwargs)
+    bound.apply_defaults()
+    query_points, points, mask, radius, layout = bound.args
+    layout = layout or cuda_normals.normals_layout(query_points, points, mask)
+    out_k = cuda_normals.radius_moments_at(*bound.args)
+    inputs = cuda_normals.moment_inputs(query_points, points, mask, radius)
     dis = cuda_normals.plain_disagreement(out_k, *inputs)
     torch.cuda.synchronize()
     ok = dis["count_equal"] and dis["moments"] <= MOMENTS_TOL
-    ms = time_ms(lambda: cuda_normals.radius_moments_at(*args, **kwargs), 20)
+    ms = time_ms(lambda: cuda_normals.radius_moments_at(*bound.args), 20)
     plain = time_ms(lambda: cuda_normals.radius_moments_plain(*inputs), 3)
     m, n = shape
-    ops = m * n * 8 + dis["neighbours"] * 10   # distance test; 10 adds per neighbour
-    n_bytes = 4 * (m * (3 + 1 + 16) + n * (3 + 1 + 16))
+    pairs = k2_swept_pairs(query_points, points, mask, layout, inputs[4], centred=True)
+    # 8 flops a pair the skip leaves, 10 adds and 6 products per neighbour;
+    # queries, radii, support and mask read once, the (M, 16) output written.
+    ops = pairs * 8 + dis["neighbours"] * 16
+    n_bytes = 12 * m + 4 * m + 13 * n + 64 * m
     b_ms, b_by = bound_ms(n_bytes, ops)
     print(f"K2 radius_moments_at {m}x{n}: counts equal {dis['count_equal']} "
           f"({dis['neighbours']} neighbours), moment err {dis['moments']:.3e} "
           f"of the sum of |feature| (tol {MOMENTS_TOL:g}), max abs err "
           f"{dis['max_abs_err']:.3e}, {ms:.4f} ms vs plain {plain:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
+          f"bound {b_ms:.5f} ms ({b_by}; swept {pairs} of {m * n} pairs, "
+          f"{100.0 * pairs / (m * n):.2f}%)")
     return ok, {"name": f"radius_moments_at[{m}x{n}]", "route": "cuda",
                 "source": "open3d_slam_torch/csrc/normals.cu",
                 "replaces": "open3d_slam_tpu/ops/pallas_normals.py:82",
@@ -363,7 +433,8 @@ def cli_localization(folder, poses, cuda_build, cfg, localization):
           f"{LOC_TOL_DEG} deg); launches {json.dumps(shape_counts(counts))}",
           flush=True)
     ok = ok and worst_t <= LOC_TOL_M and worst_r <= LOC_TOL_DEG
-    missing = missing_kernels(cuda_build, counts, ("gicp_normal_eq", "radius_moments_at"))
+    missing = missing_kernels(cuda_build, counts, ("gicp_normal_eq", "kth_neighbor_d2_within",
+                                                   "radius_moments_at"))
     if missing:
         print(f"CLI localization never launched {missing}", file=sys.stderr)
     return ok and not missing, counts
@@ -411,7 +482,8 @@ def global_localization(cuda_build, cfg, datasets, pclib, multi_start):
           f"ms (one synchronised run) {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
           f"launches {json.dumps(shape_counts(counts))}", flush=True)
     missing = missing_kernels(cuda_build, counts,
-                              ("p2l_normal_eq", "nn_argmin", "radius_moments_at"))
+                              ("p2l_normal_eq", "nn_argmin", "kth_neighbor_d2_within",
+                               "radius_moments_at"))
     if missing:
         print(f"global localization never launched {missing}", file=sys.stderr)
     return good == len(errs) and not missing, counts
@@ -517,6 +589,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     recorders = [Recorder(cuda_build, cuda_gicp, "gicp_normal_eq"),
+                 Recorder(cuda_build, cuda_normals, "kth_neighbor_d2_within"),
                  Recorder(cuda_build, cuda_normals, "radius_moments_at"),
                  Recorder(cuda_build, cuda_knn, "nn_argmin"),
                  Recorder(cuda_build, cuda_icp, "p2l_normal_eq")]
@@ -540,7 +613,7 @@ def main() -> int:
     if ate.rmse > ATE_LIMIT_M:
         print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
         ok = False
-    for rec in recorders[:2]:
+    for rec in recorders[:3]:
         if cuda_build.launch_total(rec.name, by_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
@@ -617,7 +690,7 @@ def main() -> int:
     if ate.rmse > ATE_LIMIT_M:
         print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
         ok = False
-    for rec in recorders[:3]:
+    for rec in recorders[:4]:
         if cuda_build.launch_total(rec.name, full_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
@@ -654,6 +727,11 @@ def main() -> int:
         print("point-to-plane tracking: ATE over its limit or no B = 1 launch of "
               "p2l_normal_eq", file=sys.stderr)
         ok = False
+    missing = missing_kernels(cuda_build, p2l_key, ("kth_neighbor_d2_within",
+                                                    "radius_moments_at"))
+    if missing:
+        print(f"point-to-plane tracking never launched {missing}", file=sys.stderr)
+        ok = False
     for rec in recorders:
         rec.remove()
     phases = (full_key, by_key, cli_key, global_key, p2l_key)
@@ -666,9 +744,10 @@ def main() -> int:
     # closures-off replay's, else those of steps 6 to 8 together.
     entries = []
     for rec, entry_fn, mod in ((recorders[0], gicp_entry, cuda_gicp),
-                               (recorders[1], moments_entry, cuda_normals),
-                               (recorders[2], knn_entry, cuda_knn),
-                               (recorders[3], icp_entry, cuda_icp)):
+                               (recorders[1], kth_entry, cuda_normals),
+                               (recorders[2], moments_entry, cuda_normals),
+                               (recorders[3], knn_entry, cuda_knn),
+                               (recorders[4], icp_entry, cuda_icp)):
         for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
             key = (name, shape)
             n_launch = full_key.get(key, by_key.get(key, sum(

@@ -16,12 +16,13 @@ capacities, then measures the next ``MEASURED_SCANS`` scans twice:
     busy and idle share, and the operations that take most device time.
 
 Needs a CUDA card.  Stages (nested ones are part of their parent):
-odometry.preprocess > normals; odometry.register > gicp; mapper.preprocess >
-normals; mapper.patch_prepare; mapper.register > gicp; submap.insert;
-closure.features (features and odometry constraints of a finished submap) >
-normals, knn; closure.job (one phase of the loop-closure job, with the
-pose-graph solve when a closure is accepted) > gicp, knn.  A closure stage
-appears only in windows where a submap finishes.
+odometry.preprocess > normals (layout, kth_prepass, moments_kernel);
+odometry.register > gicp; mapper.preprocess > normals; mapper.patch_prepare;
+mapper.register > gicp; submap.insert; closure.features (features and
+odometry constraints of a finished submap) > normals, knn; closure.job (one
+phase of the loop-closure job, with the pose-graph solve when a closure is
+accepted) > gicp, knn.  A closure stage appears only in windows where a
+submap finishes.
 """
 from __future__ import annotations
 
@@ -103,7 +104,8 @@ def main() -> int:
     st.wrap(s2m, "_patch_prepare", lambda *a: "mapper.patch_prepare")
     st.wrap(CloudRegistrationStrategy, "register", _register_label)
     st.wrap(Submap, "insert_scan", lambda *a: "submap.insert")
-    st.wrap(cuda_normals, "kth_neighbor_d2_at", lambda *a: "normals.kth_prepass")
+    st.wrap(cuda_normals, "normals_layout", lambda *a: "normals.layout")
+    st.wrap(cuda_normals, "kth_neighbor_d2_within", lambda *a: "normals.kth_prepass")
     st.wrap(cuda_normals, "radius_moments_at", lambda *a: "normals.moments_kernel")
     st.wrap(cuda_gicp, "gicp_normal_eq",
             lambda q, *r: f"gicp_kernel[{q.shape[1]}x{r[2].shape[-1]}]")

@@ -1,4 +1,5 @@
-"""The layout that the nearest-neighbour sweep of kernels K1 and K4 reads.
+"""The layout that the nearest-neighbour sweep of kernels K1 and K4 reads,
+and the two normals kernels of K2 (``ops/cuda_normals.normals_layout``).
 
 The sweep (``csrc/nn_sweep.cuh``) takes queries in groups of ``GROUP`` and
 targets in tiles of ``TILE``, and skips every (group, tile) pair whose boxes
@@ -181,16 +182,26 @@ def check_layout(layout: SweepLayout, b: int, m: int, n: int, device: torch.devi
 def tile_need(q_pts: torch.Tensor, q_mask_f: torch.Tensor, layout: SweepLayout,
               r2: torch.Tensor) -> torch.Tensor:
     """(B, groups, tiles) bool: the (query group, target tile) pairs the
-    sweep does not skip, with the kernel's groups, boxes and rounding."""
+    sweep does not skip, with the kernel's groups, boxes and rounding.
+    ``r2`` is one squared distance (1, 1), or one per query (M,) or (B, M):
+    then a group's threshold is the largest r2 of its valid queries, as the
+    normals kernels (``csrc/normals.cu``) take it."""
     b, m, _ = q_pts.shape
     order = layout.query_order.long().expand(b, m)
     n_groups = -(-m // GROUP)
     pad = n_groups * GROUP - m
     q = torch.gather(q_pts, 1, order[..., None].expand(b, m, 3))
     qv = torch.gather((q_mask_f.reshape(-1, m) > 0.0).expand(b, m), 1, order)
+    per_query = r2.numel() > 1
+    if per_query:
+        thr = torch.where(qv, torch.gather(r2.reshape(-1, m).expand(b, m), 1, order), -_BIG)
     if pad:
         q = torch.cat([q, q.new_zeros(b, pad, 3)], dim=1)
         qv = torch.cat([qv, qv.new_zeros(b, pad)], dim=1)
+        if per_query:
+            thr = torch.cat([thr, thr.new_full((b, pad), -_BIG)], dim=1)
+    thr = (thr.reshape(b, n_groups, GROUP).amax(dim=2)[..., None] if per_query
+           else r2.reshape(()))
     q = q.reshape(b, n_groups, GROUP, 3)
     qv = qv.reshape(b, n_groups, GROUP, 1)
     lo = torch.where(qv, q, _BIG).amin(dim=2)[:, :, None]
@@ -199,7 +210,7 @@ def tile_need(q_pts: torch.Tensor, q_mask_f: torch.Tensor, layout: SweepLayout,
     boxes = (boxes if boxes.dim() == 3 else boxes[None])[:, None]
     g = torch.clamp(torch.maximum(boxes[..., 0:3] - hi, lo - boxes[..., 3:6]), min=0.0)
     g2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
-    return g2 <= r2.reshape(())
+    return g2 <= thr
 
 
 def plan_splits(n_groups: int, b: int, n_tiles: int, device: torch.device) -> int:

@@ -1,9 +1,10 @@
 """Normal and covariance estimation.
 
 Port of ``open3d_slam_tpu.ops.normals``, flash semantics only: exact hybrid
-radius + k neighbourhoods (Open3D ``KDTreeSearchParamHybrid``) from the
-k-th-neighbour prepass and the K2 moments kernel (``ops/cuda_normals.py``),
-then a closed-form symmetric 3x3 eigensolver.  The port takes this path on
+radius + k neighbourhoods (Open3D ``KDTreeSearchParamHybrid``) from K2's two
+kernels (``ops/cuda_normals.py``), the k-th-neighbour prepass and the
+moments, both reading one layout of the centred support made per call, then
+a closed-form symmetric 3x3 eigensolver.  The port takes this path on
 every device.  (The JAX package's CPU path, a 27-cell hash-grid probe, is not
 ported.)
 """
@@ -72,9 +73,11 @@ def estimate_normals(pc: PointCloud, radius, max_nn: int = 20,
                      orientation_reference: Optional[torch.Tensor] = None) -> PointCloud:
     """Per-point PCA normals from hybrid radius+k neighbourhoods, normalised
     and oriented toward ``orientation_reference`` (default origin)."""
-    dk2 = cuda_normals.kth_neighbor_d2(pc.points, pc.mask, max_nn)
+    pts, mask = pc.points, pc.mask
+    layout = cuda_normals.normals_layout(pts, pts, mask)
+    dk2 = cuda_normals.kth_neighbor_d2_within(pts, pts, mask, max_nn, radius, layout)
     r_pp = cuda_normals.hybrid_radius(radius, dk2)
-    mom = cuda_normals.radius_moments(pc.points, pc.mask, r_pp)
+    mom = cuda_normals.radius_moments_at(pts, pts, mask, r_pp, layout)
     cnt, cov = cuda_normals.moments_to_covariance(mom)
     return pc.with_(normals=_finish_normals(pc.points, cnt, cov,
                                             orientation_reference))
@@ -86,11 +89,11 @@ def estimate_normals_at(queries: PointCloud, support: PointCloud, radius,
     """Normals at ``queries`` from neighbourhoods of a SUPPORT cloud (equal to
     ``estimate_normals(support)`` at the query rows when the queries are a
     subset of the support)."""
-    dk2 = cuda_normals.kth_neighbor_d2_at(queries.points, support.points,
-                                          support.mask, max_nn)
+    q, pts, mask = queries.points, support.points, support.mask
+    layout = cuda_normals.normals_layout(q, pts, mask, queries.mask)
+    dk2 = cuda_normals.kth_neighbor_d2_within(q, pts, mask, max_nn, radius, layout)
     r_pp = cuda_normals.hybrid_radius(radius, dk2)
-    mom = cuda_normals.radius_moments_at(queries.points, support.points,
-                                         support.mask, r_pp)
+    mom = cuda_normals.radius_moments_at(q, pts, mask, r_pp, layout)
     cnt, cov = cuda_normals.moments_to_covariance(mom)
     return queries.with_(normals=_finish_normals(queries.points, cnt, cov,
                                                  orientation_reference))

@@ -149,6 +149,102 @@ def test_radius_moments_kernel_matches_plain_on_card(cuda_device, rng, m, n, per
     assert dis["moments"] <= 1e-5, dis
 
 
+def _prepass_problem(rng, dev, m, n, case):
+    """(queries, support, mask, k) of one prepass case on the card."""
+    pts = _planes(rng, n)
+    mask = rng.uniform(size=n) > 0.02
+    k = 20
+    if case == "all_masked":
+        mask[:] = False
+    if case == "k_above_count":       # 12 valid points, k = 20: r^2 everywhere
+        mask[:] = False
+        mask[rng.choice(n, 12, replace=False)] = True
+    if case == "duplicates":          # every point three times: exact ties
+        pts = np.concatenate([pts[: n // 3]] * 3 + [pts[: n - 3 * (n // 3)]])
+    if case == "far_group":           # 10 points 500 m off: fewer than k within r
+        pts[-10:] += np.float32([500.0, 0.0, 0.0])
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)   # noqa: E731
+    pts_t, mask_t = t(pts), t(mask)
+    if m == n:
+        return pts_t, pts_t, mask_t, k
+    return pts_t[t(rng.choice(n, m, replace=False))].contiguous(), pts_t, mask_t, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,case", [
+    (4096, 16384, "mapper"),          # the mapper's queries against its support
+    (16384, 16384, "self"),           # odometry: a cloud against itself
+    (1000, 3001, "ragged"),           # partial group and tile
+    (1000, 3001, "all_masked"),
+    (1000, 3001, "k_above_count"),
+    (3001, 3001, "duplicates"),
+    (3001, 3001, "far_group"),
+])
+def test_kth_prepass_kernel_equals_plain_on_card(cuda_device, rng, m, n, case):
+    """The prepass kernel is bit-equal to its plain version (the k-th
+    smallest of a multiset does not depend on the visiting order or the
+    splits), with the layout the wrapper makes and with the normals path's;
+    one call is one counted launch: the sweep, and the merge of the splits
+    where there are several."""
+    q, pts, mask, k = _prepass_problem(rng, cuda_device, m, n, case)
+    cap = float(torch.tensor(3.0) ** 2)
+    want = tcn.kth_neighbor_d2_within_plain(q, pts, mask, k, cap)
+    key = ("kth_neighbor_d2_within", (m, n))
+    for layout in (None, tcn.normals_layout(q, pts, mask)):
+        before = cuda_build.launches[key]
+        got = tcn.kth_neighbor_d2_within(q, pts, mask, k, 3.0, layout)
+        assert cuda_build.launches[key] == before + 1
+        assert torch.equal(got, want), float((got - want).abs().max())
+    if case in ("all_masked", "k_above_count"):
+        assert bool((want == cap).all())
+    else:
+        assert float((want < cap).float().mean()) > 0.5
+    if case == "far_group":
+        assert bool((want[-10:] == cap).all())
+    layout = tcn.normals_layout(q, pts, mask)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tcn.kth_neighbor_d2_within(q, pts, mask, k, 3.0, layout)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted((e for e in prof.events()
+                                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                                    key=lambda e: e.time_range.start)]
+    splits = tcn.plan_splits(m, layout.target.boxes.shape[0], cuda_device,
+                             tcn._KTH_MAX_SPLITS)
+    assert len(names) == (1 if splits == 1 else 2) and "kth_sweep" in names[0], names
+    assert splits == 1 or "kth_merge" in names[1], names
+
+
+@pytest.mark.cuda
+def test_kth_prepass_kernel_refuses_k_above_its_maximum(cuda_device, rng):
+    q, pts, mask, _ = _prepass_problem(rng, cuda_device, 1000, 3001, "ragged")
+    assert tcn.KTH_MAX_K == 32
+    tcn.kth_neighbor_d2_within(q, pts, mask, 32, 3.0)
+    with pytest.raises(ValueError):
+        tcn.kth_neighbor_d2_within(q, pts, mask, 33, 3.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(16384, 16384), (4096, 16384), (1000, 3001)])
+def test_moments_kernel_with_varied_radii_on_card(cuda_device, rng, m, n):
+    """Per-query radii from 0.05 m to 3 m, with the normals path's layout:
+    counts exact, each moment within 1e-5 of the sum of |feature|; two
+    calls bit-equal."""
+    pts = torch.from_numpy(_planes(rng, n)).to(cuda_device)
+    mask = torch.from_numpy(rng.uniform(size=n) > 0.02).to(cuda_device)
+    q = pts if m == n else pts[torch.from_numpy(rng.choice(n, m, replace=False)).to(
+        cuda_device)].contiguous()
+    radius = torch.from_numpy(np.exp(rng.uniform(np.log(0.05), np.log(3.0), m)).astype(
+        np.float32)).to(cuda_device)
+    layout = tcn.normals_layout(q, pts, mask)
+    got = tcn.radius_moments_at(q, pts, mask, radius, layout)
+    dis = tcn.plain_disagreement(got, *tcn.moment_inputs(q, pts, mask, radius))
+    assert dis["count_equal"], dis
+    assert dis["moments"] <= 1e-5, dis
+    assert dis["neighbours"] > 2 * m
+    assert torch.equal(got, tcn.radius_moments_at(q, pts, mask, radius, layout))
+
+
 def _knn_on_card(q, t, t2):
     """K3 and its plain version on the same card tensors; the launch is
     counted once."""

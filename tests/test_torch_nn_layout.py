@@ -303,3 +303,294 @@ def test_layout_costs_few_torch_operations(rng):
     nn_layout.target_layout(tgt, tvalid)          # the Morton table, once per device
     assert len(_torch_ops(lambda: nn_layout.target_layout(tgt, tvalid))) <= 21
     assert len(_torch_ops(lambda: nn_layout.query_order(q, qv))) <= 12
+
+
+# --- K2: the normals kernels on the same layout -----------------------------
+
+from open3d_slam_torch.ops import cuda_normals as tcn  # noqa: E402
+
+_F32 = torch.float32
+
+
+def _kcap(k):
+    return 8 if k <= 8 else 16 if k <= 16 else 32
+
+
+def _sq_norm(x):
+    return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2]
+
+
+def _box_gap2(tlo, thi, lo, hi):
+    """nn::box_gap2 of tile boxes (T, 3) against one group box (3,)."""
+    g = torch.clamp(torch.maximum(tlo - hi, lo - thi), min=0.0)
+    return (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1]) + g[:, 2] * g[:, 2]
+
+
+def _fma(a, b, c):
+    """float32 fma(a, b, c), through float64 (exact product)."""
+    return (a.double() * b.double() + c.double()).to(_F32)
+
+
+def _groups(layout):
+    order = layout.query_order.long()
+    for g in range(-(-len(order) // nn_layout.GROUP)):
+        yield order[g * nn_layout.GROUP:(g + 1) * nn_layout.GROUP]
+
+
+def _listing_passes(need_of, n_tiles, threshold, start=0, stride=1, list_len=128):
+    """The kernels' listing: from tile ``start`` in steps of ``stride``, 32
+    candidates at a time, passes of at most ``list_len`` tiles, each pass
+    tested against ``threshold()`` as it stands when the pass starts.
+    Yields each pass's tiles."""
+    cand = start
+    while cand < n_tiles:
+        t = threshold()
+        listed = []
+        while cand < n_tiles and len(listed) <= list_len - 32:
+            ids = torch.arange(cand, min(cand + 32 * stride, n_tiles), stride)
+            listed += ids[need_of(ids, t)].tolist()
+            cand += 32 * stride
+        yield listed
+
+
+def _emulate_kth(query_points, points, mask, k, radius, layout, splits=1, list_len=128):
+    """``kth_sweep`` and ``kth_merge`` of csrc/normals.cu in plain PyTorch.
+    Per group and split: the tiles that overlap the group's box, whose k-th
+    values give t0 (split 0 keeps their points, the others start anew);
+    then the split's share of the other tiles (split, split + splits, ...)
+    whose gap less the rounding margin is below the group's largest
+    min(t0, k-th value), listed ``list_len`` at a time; a point enters a
+    k-list only below min(t0, k-th value) (the k smallest of a multiset do
+    not depend on the order within a tile).  The splits' k-lists merge to
+    the k-th smallest of their union.  Also returns the (group, tile) pairs
+    swept."""
+    k = min(k, points.shape[0])
+    cap = torch.tensor(float(radius), dtype=_F32) ** 2
+    kc = _kcap(k)
+    xyz = layout.target.pts[:, :3]
+    boxes = layout.target.boxes
+    tlo, thi = boxes[:, 0:3], boxes[:, 3:6]
+    t2max = _sq_norm(torch.maximum(tlo.abs(), thi.abs()))
+    tile_t2 = _sq_norm(xyz).reshape(-1, nn_layout.TILE)
+    tiles = xyz.reshape(-1, nn_layout.TILE, 3)
+    n_tiles = boxes.shape[0]
+    out = torch.full((query_points.shape[0],), float("nan"))
+    swept = 0
+    for qi in _groups(layout):
+        q = query_points[qi]
+        lo, hi = q.amin(0), q.amax(0)
+        q2 = _sq_norm(q)
+        gq2 = _sq_norm(torch.maximum(lo.abs(), hi.abs()))
+        g2_all = _box_gap2(tlo, thi, lo, hi)
+        fresh = torch.cat([torch.full((len(qi), kc - k), -float("inf")),
+                           cap.expand(len(qi), k)], dim=1)
+        lists = []
+        for split in range(splits):
+            st = {"lst": fresh, "t0": cap.expand(len(qi))}
+
+            def sweep(tile_ids):
+                nonlocal swept
+                for t in tile_ids:
+                    v = tiles[t]
+                    dot = _fma(q[:, None, 2], v[None, :, 2],
+                               _fma(q[:, None, 1], v[None, :, 1],
+                                    q[:, None, 0] * v[None, :, 0]))
+                    d = (q2[:, None] + tile_t2[t][None, :]) - 2.0 * dot
+                    d = torch.where(d < st["t0"][:, None], d, float("inf"))
+                    st["lst"] = torch.sort(torch.cat([st["lst"], d], 1), 1).values[:, :kc]
+                    swept += 1
+
+            for listed in _listing_passes(lambda ids, t: g2_all[ids] <= 0.0, n_tiles,
+                                          lambda: None, list_len=list_len):
+                sweep(listed)
+            st["t0"] = st["lst"][:, -1]
+            if split > 0:
+                st["lst"] = fresh
+
+            def need(ids, t):
+                g2 = g2_all[ids]
+                margin = 2.0 ** -19 * ((gq2 + t2max[ids]) + g2)
+                return (g2 > 0.0) & (g2 < nn_layout.SENTINEL) & (g2 - margin < t)
+
+            def threshold():
+                return torch.minimum(st["t0"], st["lst"][:, -1]).max()
+
+            for listed in _listing_passes(need, n_tiles, threshold, split, splits, list_len):
+                sweep(listed)
+            lists.append(st["lst"][:, kc - k:])
+        union = torch.sort(torch.cat(lists, 1), 1).values
+        out[qi] = torch.clamp(union[:, k - 1], min=0.0)
+    return out, swept
+
+
+def _emulate_moments(query_points, points, mask, radius, layout):
+    """``moments_sweep`` of csrc/normals.cu in plain PyTorch: queries and
+    tiles centred on the layout's centroid, the tiles whose centred box lies
+    within the group's largest r_q^2, summed tile by tile in list order.
+    Returns (moments (M, 16), (group, tile) pairs swept)."""
+    m = query_points.shape[0]
+    c = layout.centroid
+    r2 = tcn._per_query_r2(radius, m, points.device)
+    tiles = (layout.target.pts[:, :3] - c).reshape(-1, nn_layout.TILE, 3)
+    tlo, thi = layout.target.boxes[:, 0:3] - c, layout.target.boxes[:, 3:6] - c
+    out = torch.zeros((m, 16))
+    swept = 0
+    for qi in _groups(layout):
+        q = query_points[qi] - c
+        lo, hi = q.amin(0), q.amax(0)
+        t = r2[qi].max()
+        need = _box_gap2(tlo, thi, lo, hi) <= t
+        acc = torch.zeros((len(qi), 10))
+        for tile in torch.nonzero(need)[:, 0].tolist():
+            v = tiles[tile]
+            d0 = q[:, None, 0] - v[None, :, 0]
+            d1 = q[:, None, 1] - v[None, :, 1]
+            d2_ = q[:, None, 2] - v[None, :, 2]
+            w = ((d0 * d0 + d1 * d1) + d2_ * d2_ <= r2[qi][:, None]).to(_F32)
+            x, y, z = v[:, 0], v[:, 1], v[:, 2]
+            f = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z, y * y,
+                             y * z, z * z], dim=1)
+            # Sentinel rows never pass (d2 = inf): the kernel adds nothing
+            # of them, so their overflowing features are left out here.
+            acc = acc + w @ torch.where(torch.isfinite(f), f, 0.0)
+            swept += 1
+        out[qi, :10] = acc
+    return out, swept
+
+
+def _scan_like(rng, n, far=0.0):
+    """A sensor-frame patch 20-30 m out (|q|^2 ~ 10^3, where the expansion
+    form rounds d^2 by ~1e-4): ground and a wall, with exact duplicates."""
+    half = n // 2
+    ground = np.stack([rng.uniform(20, 30, half), rng.uniform(-5, 5, half),
+                       np.full(half, -1.5)], axis=1)
+    wall = np.stack([np.full(n - half, 25.0), rng.uniform(-5, 5, n - half),
+                     rng.uniform(-1.5, 3.0, n - half)], axis=1)
+    pts = np.concatenate([ground, wall]) + rng.normal(scale=0.01, size=(n, 3))
+    pts[:40] = pts[40:80]                       # duplicated points: exact ties
+    pts[-12:] += far                            # a far group of 12 < k points
+    return torch.from_numpy(pts.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["self", "subset", "masked", "outliers", "k_above",
+                                  "k_over_n"])
+def test_emulated_kth_sweep_equals_plain(rng, case):
+    """The prepass kernel's skip, listing and splits, emulated, give the
+    plain version's values bit for bit (1, 3 and 8 splits; passes of 128
+    tiles, the kernel's, and of 32): on a cloud against itself, at a query
+    subset, with a masked support, with a far outlier group (fewer than k
+    neighbours within r: exactly r^2), with k above the valid count, and
+    with k above N (the N-th, as the JAX function takes it)."""
+    n, k, radius = 2600, 20, 3.0
+    pts = _scan_like(rng, n, far=200.0 if case == "outliers" else 0.0)
+    mask = torch.ones(n, dtype=torch.bool)
+    if case == "masked":
+        mask = torch.from_numpy(rng.uniform(size=n) > 0.3)
+    if case == "k_above":
+        mask[:] = False
+        mask[:12] = True
+    if case == "k_over_n":
+        pts, mask, k = pts[:25], mask[:25], 30
+    q = pts
+    if case == "subset":
+        q = pts[torch.from_numpy(rng.choice(n, 700, replace=False))].contiguous()
+    layout = tcn.normals_layout(q, pts, mask)
+    cap = float(torch.tensor(radius, dtype=_F32) ** 2)
+    want = tcn.kth_neighbor_d2_within_plain(q, pts, mask, min(k, len(pts)), cap)
+    assert torch.equal(tcn.kth_neighbor_d2_within(q, pts, mask, k, radius, layout), want)
+    for splits, list_len in ((1, 128), (1, 32), (3, 128), (8, 32)):
+        got, n_swept = _emulate_kth(q, pts, mask, k, radius, layout, splits, list_len)
+        assert torch.equal(got, want), (splits, list_len, (got - want).abs().max())
+        if splits == 1:
+            swept = n_swept
+    n_tiles = layout.target.boxes.shape[0]
+    groups = -(-q.shape[0] // nn_layout.GROUP)
+    if case in ("self", "subset", "masked"):
+        assert float(want.max()) < cap and swept < 0.7 * groups * n_tiles
+    if case == "outliers":
+        assert bool((want[-12:] == cap).all()) and float(want[:-12].max()) < cap
+    if case == "k_above":
+        assert bool((want == cap).all())
+
+
+@pytest.mark.parametrize("subset", [False, True])
+def test_emulated_moments_sweep_matches_plain(rng, subset):
+    """The moments kernel's skip, emulated: counts exact and each moment
+    within 1e-5 of the sum of |feature| (``plain_disagreement``), per-query
+    radii from the prepass; the sweep leaves a fraction of the pairs."""
+    n = 2600
+    pts = _scan_like(rng, n)
+    mask = torch.from_numpy(rng.uniform(size=n) > 0.05)
+    q = pts[torch.from_numpy(rng.choice(n, 700, replace=False))].contiguous() if subset else pts
+    layout = tcn.normals_layout(q, pts, mask)
+    r_pp = tcn.hybrid_radius(3.0, tcn.kth_neighbor_d2_within(q, pts, mask, 20, 3.0, layout))
+    got, swept = _emulate_moments(q, pts, mask, r_pp, layout)
+    dis = tcn.plain_disagreement(got, *tcn.moment_inputs(q, pts, mask, r_pp))
+    assert dis["count_equal"] and dis["moments"] <= 1e-5, dis
+    assert dis["neighbours"] >= 20 * int(mask.sum()) * q.shape[0] // n // 2
+    sweep = nn_layout.SweepLayout(layout.target, layout.query_order)
+    need = nn_layout.tile_need(q[None], torch.ones(q.shape[0], 1), sweep, r_pp ** 2)
+    assert swept == int(need.sum()) < 0.7 * need.numel()
+
+
+def test_per_query_tile_need_drops_no_neighbour(rng):
+    """With one r^2 per query, a group's threshold is the largest of its
+    valid queries': every (query, support point) pair in a dropped (group,
+    tile) lies farther than that query's own r^2."""
+    tgt, tvalid = _lattice(rng)
+    q, qv = _queries(rng, tgt, 300)
+    lay = nn_layout.target_layout(tgt, tvalid)
+    order = nn_layout.query_order(q, qv)
+    r2 = torch.from_numpy(rng.uniform(0.01, 1.0, 300).astype(np.float32))
+    need = nn_layout.tile_need(q[None], qv.to(_F32)[:, None],
+                               nn_layout.SweepLayout(lay, order), r2)[0]
+    xyz, gidx = _decode(lay)
+    n_drop = 0
+    for g, qi in enumerate(_groups(nn_layout.SweepLayout(lay, order))):
+        qi = qi[qv[qi]]
+        for t in torch.nonzero(~need[g])[:, 0].tolist():
+            v = xyz[t * 64:(t + 1) * 64]
+            d = ((q[qi, None, 0] - v[None, :, 0]) ** 2 + (q[qi, None, 1] - v[None, :, 1]) ** 2
+                 + (q[qi, None, 2] - v[None, :, 2]) ** 2)
+            assert bool((d > r2[qi][:, None]).all())
+            n_drop += 1
+    assert 0 < n_drop < need.numel()
+    # One threshold for all gives the same as a per-query one of that value.
+    same = nn_layout.tile_need(q[None], qv.to(_F32)[:, None], nn_layout.SweepLayout(lay, order),
+                               torch.full((300,), 0.09))
+    assert torch.equal(same, nn_layout.tile_need(
+        q[None], qv.to(_F32)[:, None], nn_layout.SweepLayout(lay, order),
+        torch.full((1, 1), 0.09)))
+
+
+def test_normals_layout_orders_queries_and_is_bound_to_its_call(rng):
+    pts = _scan_like(rng, 700)
+    mask = torch.from_numpy(rng.uniform(size=700) > 0.1)
+    own = tcn.normals_layout(pts, pts, mask)
+    assert own.query_order is own.target.order
+    q = pts[:300].clone()
+    qmask = torch.from_numpy(rng.uniform(size=300) > 0.2)
+    at = tcn.normals_layout(q, pts, mask, qmask)
+    assert torch.equal(at.query_order, nn_layout.query_order(q, qmask))
+    assert torch.equal(own.centroid, tcn.support_centroid(pts, mask)[0])
+    tcn.check_layout(at, q, pts, mask)
+    for args in ((q.clone(), pts, mask), (q, pts.clone(), mask), (q, pts, mask.clone())):
+        with pytest.raises(ValueError):
+            tcn.check_layout(at, *args)
+        with pytest.raises(ValueError):
+            tcn.kth_neighbor_d2_within(*args, 10, 1.0, at)
+    q[0, 0] += 1.0
+    with pytest.raises(ValueError):
+        tcn.radius_moments_at(q, pts, mask, 1.0, at)
+
+
+def test_normals_layout_costs_few_torch_operations(rng):
+    """Per normals call: the centroid (6 operations), the support's target
+    layout (21 for a whole number of tiles) and, for queries other than the
+    support, their order (12)."""
+    pts = _scan_like(rng, 640)
+    mask = torch.ones(640, dtype=torch.bool)
+    q = pts[:256].clone()
+    tcn.normals_layout(pts, pts, mask)
+    assert len(_torch_ops(lambda: tcn.normals_layout(pts, pts, mask))) <= 27
+    assert len(_torch_ops(lambda: tcn.normals_layout(q, pts, mask, mask[:256]))) <= 39

@@ -69,6 +69,59 @@ def test_kth_neighbor_and_hybrid_radius_match_jax(rng):
         np.asarray(jpn.hybrid_radius(0.5, jnp.asarray(want))), rtol=1e-6)
 
 
+def _prepass_case(rng, case):
+    """(queries, support, mask, k, radius) of one prepass case, 10-20 m from
+    the origin so that the expansion form's rounding shows."""
+    if case == "ties":
+        g = np.stack(np.meshgrid(np.arange(8), np.arange(8), np.arange(4),
+                                 indexing="ij"), -1).reshape(-1, 3) * 0.5
+        pts = (g + np.float32([12.0, -3.0, 1.0])).astype(np.float32)
+        return pts[rng.choice(len(pts), 96, replace=False)], pts, np.ones(len(pts), bool), 7, 1.2
+    pts = (rng.uniform(-3, 3, (512, 3)) + np.float32([15.0, 8.0, -1.0])).astype(np.float32)
+    mask = np.ones(512, bool)
+    queries, k, radius = pts[:128], 10, 1.5
+    if case == "sparse":          # few queries have k support points within r
+        radius = 0.6
+    if case == "k_above_valid":   # 6 valid points, k = 10: r^2 everywhere
+        mask[6:] = False
+    if case == "masked":
+        mask = rng.uniform(size=512) < 0.7
+    if case == "outside":         # queries that are not support points
+        queries = (rng.uniform(-3.5, 3.5, (128, 3)) + np.float32([15.0, 8.0, -1.0])
+                   ).astype(np.float32)
+    return queries, pts, mask, k, radius
+
+
+@pytest.mark.parametrize("case", ["sparse", "k_above_valid", "masked", "outside", "ties"])
+def test_capped_prepass_matches_jax_exact_prepass(rng, case):
+    """``kth_neighbor_d2_within`` (the prepass kernel's plain version)
+    against the JAX package's exact prepass capped as ``hybrid_radius``
+    caps it: both take the expansion form |q|^2 + |t|^2 - 2 q.t, whose dot
+    both round as one FMA chain; the port sums the squared norms x, y, z,
+    where XLA may sum them in another order, so the two agree to 4 ulps of
+    |q|^2 + |t|^2 (and the radii to the square root of that)."""
+    queries, pts, mask, k, radius = _prepass_case(rng, case)
+    dk2 = np.asarray(jpn.kth_neighbor_d2_at(jnp.asarray(queries), jnp.asarray(pts),
+                                            jnp.asarray(mask), k, exact=True))
+    r2 = np.float32(radius) ** 2
+    want = np.minimum(r2, dk2)
+    got = tcn.kth_neighbor_d2_within(torch.from_numpy(queries), torch.from_numpy(pts),
+                                     torch.from_numpy(mask), k, radius).numpy()
+    scale = float((queries ** 2).sum(1).max() + (pts ** 2).sum(1).max())
+    tol = 4 * np.finfo(np.float32).eps * scale
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    assert got.max() <= r2 and got.min() >= 0.0
+    np.testing.assert_allclose(
+        tcn.hybrid_radius(radius, torch.from_numpy(got)).numpy(),
+        np.asarray(jpn.hybrid_radius(radius, jnp.asarray(dk2))), rtol=0, atol=np.sqrt(tol))
+    capped = dk2 > r2 + tol
+    assert np.array_equal(got[capped], np.full(int(capped.sum()), r2, np.float32))
+    if case in ("sparse", "k_above_valid"):
+        assert capped.mean() > (0.99 if case == "k_above_valid" else 0.2)
+    if case == "ties":
+        assert np.array_equal(got, want)
+
+
 def test_smallest_eigvec_and_covariances_match_jax(rng):
     """Well-conditioned covariances (smallest eigenvalue separated by 1e-2):
     the eigenvector agrees to 1e-4, up to sign."""
