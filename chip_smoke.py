@@ -38,7 +38,9 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      next to the least time the card could take (the bound); for K1 and K4
      also the device time of each of a call's launches (``torch.profiler``),
      for K2's prepass also the matmul + topk chain it replaced, and for the
-     sweeps the share of pairs their skip leaves;
+     sweeps the share of pairs their skip leaves; K3 both gated (the
+     callers' entry, held by their verdict) and ungated (bit-equal), with
+     ``torch.cdist(...).argmin(1)`` timed beside it;
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
@@ -315,32 +317,77 @@ def moments_entry(cuda_normals, shape, n_launch, args, kwargs):
 
 
 def knn_entry(cuda_knn, shape, n_launch, args, kwargs):
+    """K3 at one shape the replays recorded: ``nn_argmin_within`` (the
+    callers' gated entry) against the full plain sweep, by the callers'
+    verdict (``hashgrid.query_nearest``: the winner's exact d2 within r, a
+    valid target) and bit for bit on (index, e) wherever it holds; the
+    ungated ``nn_argmin`` bit-equal to its plain version on the same inputs,
+    flattened; ``torch.cdist(...).argmin(1)`` timed as the library
+    yardstick (not the same function: it rounds otherwise)."""
     import torch
-    got_i, got_d = cuda_knn.nn_argmin(*args, **kwargs)
-    inputs = cuda_knn.knn_inputs(*args, **kwargs)
-    want_i, want_d = cuda_knn.nn_argmin_plain(*inputs)
+    from open3d_slam_torch.ops import hashgrid, nn_layout
+    bound = inspect.signature(cuda_knn.nn_argmin_within).bind(*args, **kwargs)
+    queries, qmask, layout, r = bound.args
+    b, m, n = shape
+    got_i, got_e = cuda_knn.nn_argmin_within(*bound.args)
+    want_i, want_e = cuda_knn.nn_argmin_within_plain(*bound.args)
+    points, valid = cuda_knn.layout_targets(layout.target)
+    r2 = torch.tensor(float(r), dtype=torch.float32, device=queries.device) ** 2
+    (got_f, got_d2), (want_f, _) = (hashgrid.gate(points, valid, queries, i, e, r)
+                                    for i, e in ((got_i, got_e), (want_i, want_e)))
+    rest = ~want_f
+    gated_ok = (torch.equal(got_f, want_f) and torch.equal(got_i[want_f], want_i[want_f])
+                and torch.equal(got_e[want_f].view(torch.int32),
+                                want_e[want_f].view(torch.int32))
+                and bool((((got_e[rest] == float("inf")) & (got_i[rest] == 0))
+                          | (got_d2[rest] > r2)).all()))
+    q = queries.reshape(-1, 3)
+    t_t = points.t().contiguous()
+    t2 = torch.where(valid, cuda_knn.squared_norms(points), float("inf"))
+    ug_i, ug_e = cuda_knn.nn_argmin(q, t_t, t2)
+    pl_i, pl_e = cuda_knn.nn_argmin_plain(*cuda_knn.knn_inputs(q, t_t, t2))
+    ungated_ok = torch.equal(ug_i, pl_i) and torch.equal(ug_e.view(torch.int32),
+                                                          pl_e.view(torch.int32))
     torch.cuda.synchronize()
-    same_inf = torch.equal(torch.isinf(got_d), torch.isinf(want_d))
-    fin = torch.isfinite(want_d)
-    err = float((got_d[fin] - want_d[fin]).abs().max()) if bool(fin.any()) else 0.0
-    ok = torch.equal(got_i, want_i) and same_inf and err == 0.0
-    ms = time_ms(lambda: cuda_knn.nn_argmin(*args, **kwargs), 20)
-    plain = time_ms(lambda: cuda_knn.nn_argmin_plain(*inputs), 3)
-    m, n = shape
-    # 9 flops a pair: the 3-term dot, |q|^2 + |t|^2, the 2x and the
-    # subtraction, and the compare.  Each input read once, each output
-    # written once.
-    b_ms, b_by = bound_ms(4 * (m * 4 + n * 4 + m * 2), 9.0 * m * n)
-    n_valid = int(torch.isfinite(inputs[3]).sum())
-    print(f"K3 nn_argmin {m}x{n}: indices equal {torch.equal(got_i, want_i)}, "
-          f"d2 max abs err {err:.3e} (exact required), {n_valid} valid targets, "
-          f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return ok, {"name": f"nn_argmin[{m}x{n}]", "route": "cuda",
-                "source": "open3d_slam_torch/csrc/knn.cu",
-                "replaces": "open3d_slam_tpu/ops/pallas_knn.py:58",
-                "launches": n_launch, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None}
+    fin = torch.isfinite(pl_e)
+    err = max(float((got_e[want_f] - want_e[want_f]).abs().max()) if bool(want_f.any()) else 0.0,
+              float((ug_e[fin] - pl_e[fin]).abs().max()) if bool(fin.any()) else 0.0)
+    ms = time_ms(lambda: cuda_knn.nn_argmin_within(*bound.args), 20)
+    ungated_ms = time_ms(lambda: cuda_knn.nn_argmin(q, t_t, t2), 20)
+    plain = time_ms(lambda: cuda_knn.nn_argmin_within_plain(*bound.args), 3)
+    t_valid = points[valid].contiguous()
+    lib_idx = torch.nonzero(valid)[:, 0][torch.cdist(
+        q, t_valid, compute_mode="use_mm_for_euclid_dist").argmin(1)]
+    agree = float((lib_idx == pl_i.long()).float().mean())
+    del lib_idx
+    library = time_ms(lambda: torch.cdist(q, t_valid, compute_mode="use_mm_for_euclid_dist")
+                      .argmin(1), 3)
+    # 9 flops a pair the skip leaves at 64 x 64 (the 3-term dot, |q|^2 +
+    # |t|^2, the 2x, the subtraction and the compare).  Each input read once
+    # (queries, mask, order, staged targets, tile boxes), each output written
+    # once (index, e).
+    mask_f = (torch.ones((m, 1), device=q.device) if qmask is None
+              else qmask.reshape(-1, m, 1).float())
+    need = nn_layout.tile_need(queries, mask_f, layout, r2.reshape(1, 1), margin=True)
+    pairs = int(need.sum().item()) * nn_layout.GROUP * nn_layout.TILE
+    n_bytes = 12 * b * m + b * m + 4 * m + layout.target.pts.numel() * 4 + \
+        layout.target.boxes.numel() * 4 + 8 * b * m
+    b_ms, b_by = bound_ms(n_bytes, 9.0 * pairs)
+    all_ms, all_by = bound_ms(n_bytes, 9.0 * b * m * n)
+    found_share = float(want_f.float().mean())
+    print(f"K3 nn_argmin_within {b}x{m}x{n} (r {float(r):g} m): verdict equal "
+          f"{torch.equal(got_f, want_f)} ({found_share:.4f} found), indices and e equal on "
+          f"found {gated_ok}; ungated nn_argmin {b * m}x{n} bit-equal {ungated_ok}; max abs "
+          f"err {err:.3e} (exact required); {ms:.4f} ms gated, {ungated_ms:.4f} ms ungated, "
+          f"plain {plain:.4f} ms, cdist + argmin {library:.4f} ms (indices agree "
+          f"{agree:.4f}); bound {b_ms:.5f} ms ({b_by}; swept {pairs} of {b * m * n} pairs, "
+          f"{100.0 * pairs / (b * m * n):.2f}%), all-pairs bound {all_ms:.5f} ms ({all_by})")
+    return gated_ok and ungated_ok, {
+        "name": f"nn_argmin[{b}x{m}x{n}]", "route": "cuda",
+        "source": "open3d_slam_torch/csrc/knn.cu",
+        "replaces": "open3d_slam_tpu/ops/pallas_knn.py:58",
+        "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
 
 
 def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
@@ -387,6 +434,13 @@ def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
                 "library_ms": None}
 
 
+def poses_sha1(poses) -> str:
+    """The first 16 hex digits of the sha1 of 4x4 poses as float64: two runs
+    with equal digests gave bit-equal poses."""
+    import numpy as np
+    return hashlib.sha1(np.stack(poses).astype(np.float64).tobytes()).hexdigest()[:16]
+
+
 def pose_error(a, b):
     """(translation m, rotation deg) between two 4x4 poses."""
     import numpy as np
@@ -420,7 +474,7 @@ def cli_localization(folder, poses, cuda_build, cfg, localization):
     wall = time.perf_counter() - t0
     counts = dict(cuda_build.launches)
     ok = rc == 0
-    errs = []
+    errs, got = [], None
     if ok:
         got = np.load(out)["poses"]
         ok = len(got) == LOC_SCANS
@@ -428,7 +482,8 @@ def cli_localization(folder, poses, cuda_build, cfg, localization):
     worst_t = max((e[0] for e in errs), default=float("inf"))
     worst_r = max((e[1] for e in errs), default=float("inf"))
     print(f"CLI localization: rc {rc}, {len(errs)} of {LOC_SCANS} poses in "
-          f"{wall:.2f} s (map load and normals included); largest gap to the "
+          f"{wall:.2f} s (map load and normals included), poses sha1 "
+          f"{poses_sha1(got) if ok else None}; largest gap to the "
           f"replay {worst_t:.4f} m, {worst_r:.4f} deg (limits {LOC_TOL_M} m, "
           f"{LOC_TOL_DEG} deg); launches {json.dumps(shape_counts(counts))}",
           flush=True)
@@ -463,10 +518,11 @@ def global_localization(cuda_build, cfg, datasets, pclib, multi_start):
 
     localize(100)
     cuda_build.launches.clear()
-    times, errs = [], []
+    times, errs, found = [], [], []
     for seed in GLOBAL_SEEDS:
         dt, T, T_true, fit = localize(seed)
         times.append(dt)
+        found.append(T)
         errs.append(pose_error(T_true, T))
         print(f"  planted pose {seed}: {dt * 1e3:.2f} ms, fitness {fit:.4f}, "
               f"t_err {errs[-1][0]:.4f} m, rot err {errs[-1][1]:.4f} deg")
@@ -478,11 +534,12 @@ def global_localization(cuda_build, cfg, datasets, pclib, multi_start):
     print(f"global localization: {good} of {len(errs)} planted poses within "
           f"{GLOBAL_TOL_M} m and {GLOBAL_TOL_DEG} deg, {GLOBAL_HYPOTHESES} "
           f"hypotheses on {GLOBAL_MAP} map points, per-localization p50 "
-          f"{p50 * 1e3:.2f} ms, {GLOBAL_HYPOTHESES / p50:.1f} hypotheses/s; stage "
+          f"{p50 * 1e3:.2f} ms, {GLOBAL_HYPOTHESES / p50:.1f} hypotheses/s, poses sha1 "
+          f"{poses_sha1(found)}; stage "
           f"ms (one synchronised run) {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
           f"launches {json.dumps(shape_counts(counts))}", flush=True)
     missing = missing_kernels(cuda_build, counts,
-                              ("p2l_normal_eq", "nn_argmin", "kth_neighbor_d2_within",
+                              ("p2l_normal_eq", "nn_argmin_within", "kth_neighbor_d2_within",
                                "radius_moments_at"))
     if missing:
         print(f"global localization never launched {missing}", file=sys.stderr)
@@ -591,7 +648,7 @@ def main() -> int:
     recorders = [Recorder(cuda_build, cuda_gicp, "gicp_normal_eq"),
                  Recorder(cuda_build, cuda_normals, "kth_neighbor_d2_within"),
                  Recorder(cuda_build, cuda_normals, "radius_moments_at"),
-                 Recorder(cuda_build, cuda_knn, "nn_argmin"),
+                 Recorder(cuda_build, cuda_knn, "nn_argmin_within"),
                  Recorder(cuda_build, cuda_icp, "p2l_normal_eq")]
     for rec in recorders:
         rec.install()
@@ -599,7 +656,7 @@ def main() -> int:
     n = len(scans)
     per_scan_ms, wall_s, by_key, syncs = replay(slam, scans, cuda_build, devmod)
     poses, ate, rpe = check_trajectory(slam, seq, n, evaluation)
-    pose_digest = hashlib.sha1(np.stack(poses).astype(np.float64).tobytes()).hexdigest()[:16]
+    pose_digest = poses_sha1(poses)
     print(f"replay (closures off): {n} scans, per-scan p50 "
           f"{np.median(per_scan_ms):.2f} ms, mean {wall_s * 1e3 / n:.2f} ms (wall "
           f"{wall_s:.2f} s incl. finish), host syncs {syncs} = {syncs / n:.2f} per "
@@ -617,7 +674,7 @@ def main() -> int:
         if cuda_build.launch_total(rec.name, by_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
-    for name in ("nn_argmin", "p2l_normal_eq"):
+    for name in ("nn_argmin_within", "p2l_normal_eq"):
         if cuda_build.launch_total(name, by_key):
             print(f"{name} ran with loop closures off", file=sys.stderr)
             ok = False
@@ -674,7 +731,7 @@ def main() -> int:
     print(f"replay (full configuration): {n} scans, per-scan p50 {q[0]:.2f} ms, "
           f"p99 {q[1]:.2f} ms, max {max(per_scan_ms):.2f} ms, mean "
           f"{wall_s * 1e3 / n:.2f} ms (wall {wall_s:.2f} s incl. finish), host "
-          f"syncs {syncs} = {syncs / n:.2f} per scan")
+          f"syncs {syncs} = {syncs / n:.2f} per scan, poses sha1 {poses_sha1(poses)}")
     print(f"ATE rmse {ate.rmse:.4f} m, mean {ate.mean:.4f} m, max {ate.max:.4f} m; "
           f"RPE trans {rpe.trans_rmse:.4f} m, rot {rpe.rot_rmse_deg:.4f} deg")
     print(f"health: {json.dumps(health)}")

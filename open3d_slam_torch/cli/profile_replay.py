@@ -109,7 +109,8 @@ def main() -> int:
     st.wrap(cuda_normals, "radius_moments_at", lambda *a: "normals.moments_kernel")
     st.wrap(cuda_gicp, "gicp_normal_eq",
             lambda q, *r: f"gicp_kernel[{q.shape[1]}x{r[2].shape[-1]}]")
-    st.wrap(cuda_knn, "nn_argmin", lambda q, t, *r: f"knn_kernel[{q.shape[0]}x{t.shape[1]}]")
+    st.wrap(cuda_knn, "nn_argmin_within",
+            lambda q, m, lay, *r: f"knn_kernel[{q.shape[1]}x{lay.target.order.shape[-1]}]")
     st.wrap(SlamWrapper, "compute_features_if_ready", lambda *a: "closure.features")
     st.wrap(SlamWrapper, "_advance_loop_closures", lambda *a: "closure.job")
     window = scans[WARM_SCANS:WARM_SCANS + MEASURED_SCANS]

@@ -1,6 +1,8 @@
 // The exact nearest-neighbour sweep shared by kernels K1 (csrc/gicp.cu) and
 // K4 (csrc/icp.cu), and the block reduction that ends both of their row
-// kernels.  Built for Hopper (sm_90a) with -fmad=false.
+// kernels; K2 (csrc/normals.cu) and K3 (csrc/knn.cu) sweep the same layout
+// with their own kernels and take its helpers (box gap, |p|^2 bounds, tile
+// listing, the cp.async ring).  Built for Hopper (sm_90a) with -fmad=false.
 //
 // What it computes: for every query q of every batch element, the valid
 // target t with the smallest float32 d2 = (dx*dx + dy*dy) + dz*dz (rounded
@@ -118,6 +120,66 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void load_tile(float4* dst, const float4* src, int lane) {
 #pragma unroll
   for (int k = lane; k < kTile; k += 32) cp_async16(dst + k, src + k);
+}
+
+// x^2 + y^2 + z^2, summed x, then y, then z.
+__device__ __forceinline__ float sq_norm(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+// The largest |p|^2 of a point p in the box [lo, hi] (rounded to nearest:
+// the rounding margin that reads it is four times what it needs).
+__device__ __forceinline__ float box_max_sq(float lx, float ly, float lz, float hx,
+                                            float hy, float hz) {
+  return sq_norm(fmaxf(fabsf(lx), fabsf(hx)), fmaxf(fabsf(ly), fabsf(hy)),
+                 fmaxf(fabsf(lz), fabsf(hz)));
+}
+
+// Lists into ``list``, from tile ``cand`` on in steps of ``stride``, up to
+// kList tiles whose boxes (b0, b1: min xyz, max xyz) pass need(b0, b1);
+// advances ``cand``.
+template <class Need>
+__device__ __forceinline__ int list_tiles(const float4* __restrict__ tb, int n_tiles,
+                                          int& cand, int stride, int lane, int* list,
+                                          Need need) {
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;
+  while (cand < n_tiles && count <= kList - 32) {
+    const int t = cand + lane * stride;
+    bool take = false;
+    if (t < n_tiles) take = need(tb[2 * t], tb[2 * t + 1]);
+    const unsigned m = __ballot_sync(0xffffffffu, take);
+    if (take) list[count + __popc(m & below)] = t;
+    count += __popc(m);
+    cand += 32 * stride;
+  }
+  __syncwarp();
+  return count;
+}
+
+// Calls visit(tile) on each listed tile, in list order, staged through the
+// warp's cp.async ring: tile k + kStages - 1 loads while tile k is visited.
+template <class Visit>
+__device__ __forceinline__ void sweep_tiles(const float4* __restrict__ tp, const int* list,
+                                            int count, float4* ring, int lane,
+                                            Visit visit) {
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < count) load_tile(ring + s * kTile, tp + (size_t)list[s] * kTile, lane);
+    cp_async_commit();
+  }
+  for (int k = 0; k < count; ++k) {
+    const int nxt = k + kStages - 1;
+    if (nxt < count)
+      load_tile(ring + (nxt % kStages) * kTile, tp + (size_t)list[nxt] * kTile, lane);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    visit(ring + (k % kStages) * kTile);
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  __syncwarp();
 }
 
 // grid (ceil(groups / kWarps), splits, B); block 32 * kWarps.  Warps work

@@ -75,6 +75,10 @@ using nn::kList;
 using nn::kPerLane;
 using nn::kStages;
 using nn::kTile;
+using nn::box_max_sq;
+using nn::list_tiles;
+using nn::sq_norm;
+using nn::sweep_tiles;
 
 constexpr int kWarps = 4;    // query groups per block
 constexpr int kMaxK = 32;    // the largest k-list
@@ -130,66 +134,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
   return v;
-}
-
-// x^2 + y^2 + z^2, summed x, then y, then z.
-__device__ __forceinline__ float sq_norm(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-}
-
-// The largest |p|^2 of a point p in the box [lo, hi] (rounded to nearest:
-// the rounding margin that reads it is four times what it needs).
-__device__ __forceinline__ float box_max_sq(float lx, float ly, float lz, float hx,
-                                            float hy, float hz) {
-  return sq_norm(fmaxf(fabsf(lx), fabsf(hx)), fmaxf(fabsf(ly), fabsf(hy)),
-                 fmaxf(fabsf(lz), fabsf(hz)));
-}
-
-// Lists into ``list``, from tile ``cand`` on in steps of ``stride``, up to
-// kList tiles whose boxes (b0, b1: min xyz, max xyz) pass need(b0, b1);
-// advances ``cand``.
-template <class Need>
-__device__ __forceinline__ int list_tiles(const float4* __restrict__ tb, int n_tiles,
-                                          int& cand, int stride, int lane, int* list,
-                                          Need need) {
-  const unsigned below = (1u << lane) - 1u;
-  int count = 0;
-  while (cand < n_tiles && count <= kList - 32) {
-    const int t = cand + lane * stride;
-    bool take = false;
-    if (t < n_tiles) take = need(tb[2 * t], tb[2 * t + 1]);
-    const unsigned m = __ballot_sync(0xffffffffu, take);
-    if (take) list[count + __popc(m & below)] = t;
-    count += __popc(m);
-    cand += 32 * stride;
-  }
-  __syncwarp();
-  return count;
-}
-
-// Calls visit(tile) on each listed tile, in list order, staged through the
-// warp's cp.async ring: tile k + kStages - 1 loads while tile k is visited.
-template <class Visit>
-__device__ __forceinline__ void sweep_tiles(const float4* __restrict__ tp, const int* list,
-                                            int count, float4* ring, int lane,
-                                            Visit visit) {
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < count) nn::load_tile(ring + s * kTile, tp + (size_t)list[s] * kTile, lane);
-    nn::cp_async_commit();
-  }
-  for (int k = 0; k < count; ++k) {
-    const int nxt = k + kStages - 1;
-    if (nxt < count)
-      nn::load_tile(ring + (nxt % kStages) * kTile, tp + (size_t)list[nxt] * kTile, lane);
-    nn::cp_async_commit();
-    nn::cp_async_wait<kStages - 1>();
-    __syncwarp();
-    visit(ring + (k % kStages) * kTile);
-    __syncwarp();
-  }
-  nn::cp_async_wait<0>();
-  __syncwarp();
 }
 
 // grid (ceil(groups / kWarps), splits); block 32 * kWarps.  Warps work

@@ -12,7 +12,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from open3d_slam_torch.ops import cuda_gicp, cuda_icp, normals as normals_ops, registration
+from open3d_slam_torch.ops import cuda_gicp, cuda_icp, hashgrid, nn_layout, registration
+from open3d_slam_torch.ops import normals as normals_ops
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils.config import CloudRegistrationParameters, IcpParameters
 from open3d_slam_torch.utils.pointcloud import PointCloud
@@ -26,6 +27,13 @@ class PreparedCloud(NamedTuple):
     covs_sorted: Optional[torch.Tensor] = None  # GICP only
     # K1's or K4's target arrays and sweep layout (their ``prepare_target``)
     kernel_target: Optional[tuple] = None
+
+    def nearest_layout(self) -> nn_layout.TargetLayout:
+        """K3's target layout of ``grid``: the kernel target's, which
+        ``_prepare_target_fn`` makes from the grid's own points and mask,
+        or a new one."""
+        return hashgrid.nearest_layout(
+            self.grid, None if self.kernel_target is None else self.kernel_target[-1])
 
 
 def _prepare_target_fn(pc: PointCloud, cell: float, with_covs: bool,

@@ -16,7 +16,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from open3d_slam_torch.ops import hashgrid, overlap as overlap_ops, pose_graph as pg_ops
+from open3d_slam_torch.ops import hashgrid, nn_layout, overlap as overlap_ops
+from open3d_slam_torch.ops import pose_graph as pg_ops
 from open3d_slam_torch.ops import registration
 from open3d_slam_torch.utils import pointcloud as pclib, se3
 from open3d_slam_torch.utils.device import prefetch_to_host, to_host
@@ -77,13 +78,20 @@ def constraint_outputs(source: PointCloud, target: PointCloud,
     T_icp = eye4
     info = torch.eye(6, dtype=torch.float32, device=dev)
     grid = hashgrid.build(target, cell_size=icp_max_corr_distance)
+    order = nn_layout.query_order(source.points, source.mask)
+    prepared = None
     if not is_skip_icp_refinement:
+        prepared = registration.point_to_plane_target(grid)
         T_icp = registration.icp_point_to_plane(
             source, grid, eye4, icp_max_corr_distance,
-            max_iterations=ICP_RUN_UNTIL_CONVERGENCE_ITERS).transformation
+            max_iterations=ICP_RUN_UNTIL_CONVERGENCE_ITERS, prepared=prepared,
+            source_order=order).transformation
     if is_estimate_information_matrix:
         pts = se3.transform_points(T_icp, source.points)
-        idx, _, found = hashgrid.query_nearest(grid, pts, icp_max_corr_distance)
+        # K3 reads K4's Morton layout of the same grid where one was made.
+        layout = hashgrid.nearest_layout(grid, None if prepared is None else prepared[-1])
+        idx, _, found = hashgrid.query_nearest(grid, pts, icp_max_corr_distance, layout,
+                                               order, source.mask)
         q = grid.points_sorted[idx.long()]
         info = info_scale * pg_ops.information_matrix_from_correspondences(
             q, found & source.mask)

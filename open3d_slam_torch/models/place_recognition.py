@@ -33,7 +33,7 @@ from open3d_slam_torch.models.cloud_registration import CloudRegistrationStrateg
 from open3d_slam_torch.models.constraints import (
     Constraint, ICP_RUN_UNTIL_CONVERGENCE_ITERS, SOURCE_COMPACT_CAP,
     TARGET_COMPACT_CAP, VOXEL_EXPANSION_OVERLAP, get_map_voxel_size)
-from open3d_slam_torch.ops import hashgrid, overlap as overlap_ops, ransac
+from open3d_slam_torch.ops import hashgrid, nn_layout, overlap as overlap_ops, ransac
 from open3d_slam_torch.ops import pose_graph as pg_ops
 from open3d_slam_torch.utils import pointcloud as pclib, se3
 from open3d_slam_torch.utils.config import MapperParameters
@@ -107,10 +107,12 @@ class PlaceRecognition:
         info_scale = torch.clamp(
             n_src_full / torch.clamp(source.count().to(torch.float32), min=1.0), min=1.0)
         prepared = self.registration.prepare_target(target)
-        res = self.registration.register(source, prepared, T_ransac)
+        order = nn_layout.query_order(source.points, source.mask)
+        res = self.registration.register(source, prepared, T_ransac, source_order=order)
         pts = se3.transform_points(res.transformation, source.points)
         idx, _, found = hashgrid.query_nearest(prepared.grid, pts,
-                                               p.max_icp_correspondence_distance)
+                                               p.max_icp_correspondence_distance,
+                                               prepared.nearest_layout(), order, source.mask)
         q = prepared.grid.points_sorted[idx.long()]
         info = info_scale * pg_ops.information_matrix_from_correspondences(
             q, found & source.mask)

@@ -54,6 +54,7 @@ _BITS = 10         # Morton bits per axis
 _WARPS_PER_SM = 128  # sweep warps a launch aims for per SM (several waves)
 
 _spread: Dict[torch.device, torch.Tensor] = {}
+_sms: Dict[torch.device, int] = {}
 _scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -148,15 +149,12 @@ def layout_for(q_pts: torch.Tensor, q_mask_f: torch.Tensor, coords: torch.Tensor
     return SweepLayout(bind(target, coords, tv), query_order(q_pts, qv))
 
 
-def check_layout(layout: SweepLayout, b: int, m: int, n: int, device: torch.device,
-                 coords: torch.Tensor, tv: torch.Tensor):
+def check_fit(layout: SweepLayout, b: int, m: int, n: int, device: torch.device,
+              batched: bool = False):
     """Raise unless ``layout`` fits a call with B = b, M = m, N = n on
-    ``device`` whose target coordinates and validity are ``coords`` and
-    ``tv``: the target layout must have been made with these very tensors
-    (``bind``), unchanged since.  The query order is read as it comes; the
-    kernels mark a call whose order leaves out a valid query (NaN inlier
-    count, ``csrc/nn_sweep.cuh``)."""
-    lead = (b,) if coords.dim() == 3 else ()
+    ``device`` (one target per batch element when ``batched``), or its target
+    arrays changed in place since it was bound to them."""
+    lead = (b,) if batched else ()
     n_tiles = max(1, -(-n // TILE))
     target = layout.target
     pts, boxes = target.pts, target.boxes
@@ -171,6 +169,13 @@ def check_layout(layout: SweepLayout, b: int, m: int, n: int, device: torch.devi
         raise ValueError("layout does not fit the call: expected target pts "
                          f"{lead + (n_tiles * TILE, 4)}, boxes {lead + (n_tiles, 8)}, "
                          f"query order ({m},) or ({b}, {m}) int32, contiguous on {device}")
+    if tuple(t._version for t in target.arrays) != target.versions:
+        raise ValueError("the arrays the layout was made with changed since")
+
+
+def check_bound(target: TargetLayout, coords: torch.Tensor, tv: torch.Tensor):
+    """Raise unless ``target`` was made with these very tensors (``bind``),
+    unchanged since."""
     if (len(target.arrays) != 2 or target.arrays[0] is not coords
             or target.arrays[1] is not tv
             or (coords._version, tv._version) != target.versions):
@@ -179,13 +184,34 @@ def check_layout(layout: SweepLayout, b: int, m: int, n: int, device: torch.devi
                          "with them")
 
 
+def check_layout(layout: SweepLayout, b: int, m: int, n: int, device: torch.device,
+                 coords: torch.Tensor, tv: torch.Tensor):
+    """Raise unless ``layout`` fits a call with B = b, M = m, N = n on
+    ``device`` whose target coordinates and validity are ``coords`` and
+    ``tv``: the target layout must have been made with these very tensors
+    (``bind``), unchanged since.  The query order is read as it comes; the
+    kernels mark a call whose order leaves out a valid query (NaN inlier
+    count, ``csrc/nn_sweep.cuh``)."""
+    check_bound(layout.target, coords, tv)
+    check_fit(layout, b, m, n, device, batched=coords.dim() == 3)
+
+
+def _box_max_sq(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The largest |p|^2 of a point in each box [lo, hi] (..., 3), summed as
+    ``nn::box_max_sq`` sums it."""
+    a = torch.maximum(lo.abs(), hi.abs())
+    return (a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]) + a[..., 2] * a[..., 2]
+
+
 def tile_need(q_pts: torch.Tensor, q_mask_f: torch.Tensor, layout: SweepLayout,
-              r2: torch.Tensor) -> torch.Tensor:
+              r2: torch.Tensor, margin: bool = False) -> torch.Tensor:
     """(B, groups, tiles) bool: the (query group, target tile) pairs the
     sweep does not skip, with the kernel's groups, boxes and rounding.
     ``r2`` is one squared distance (1, 1), or one per query (M,) or (B, M):
     then a group's threshold is the largest r2 of its valid queries, as the
-    normals kernels (``csrc/normals.cu``) take it."""
+    normals kernels (``csrc/normals.cu``) take it.  With ``margin``, K3's
+    expansion-form skip (``csrc/knn.cu``): a pair is kept when its gap less
+    2^-19 (|q|^2_max + |t|^2_max + gap) is below r2."""
     b, m, _ = q_pts.shape
     order = layout.query_order.long().expand(b, m)
     n_groups = -(-m // GROUP)
@@ -210,14 +236,20 @@ def tile_need(q_pts: torch.Tensor, q_mask_f: torch.Tensor, layout: SweepLayout,
     boxes = (boxes if boxes.dim() == 3 else boxes[None])[:, None]
     g = torch.clamp(torch.maximum(boxes[..., 0:3] - hi, lo - boxes[..., 3:6]), min=0.0)
     g2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
-    return g2 <= thr
+    if not margin:
+        return g2 <= thr
+    slack = 2.0 ** -19 * ((_box_max_sq(lo, hi) + _box_max_sq(boxes[..., 0:3], boxes[..., 3:6]))
+                          + g2)
+    return g2 - slack < thr
 
 
 def plan_splits(n_groups: int, b: int, n_tiles: int, device: torch.device) -> int:
     """Splits of the target tiles per query group: about ``_WARPS_PER_SM``
     sweep warps per SM, several waves, so that a group whose box meets many
     tiles spreads them over many warps; at most one split per tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-_WARPS_PER_SM * sms // max(n_groups * b, 1))
     return max(1, min(want, n_tiles, 65535))
 

@@ -201,6 +201,15 @@ def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dis
                          se3.se3_exp if use_exp_retraction else _euler_xyz_transform)
 
 
+def point_to_plane_target(grid: HashGrid) -> tuple:
+    """K4's target arrays and sweep layout of a grid with normals
+    (``cuda_icp.prepare_target``)."""
+    if grid.normals_sorted is None:
+        raise ValueError("point-to-plane ICP needs a target grid with normals")
+    return cuda_icp.prepare_target(grid.points_sorted, grid.normals_sorted,
+                                   grid.hashes_sorted != INT32_MAX)
+
+
 def batched_icp_point_to_plane(source: PointCloud, target_grid: HashGrid,
                                inits: torch.Tensor, max_correspondence_distance,
                                max_iterations: int = 30,
@@ -225,11 +234,7 @@ def batched_icp_point_to_plane(source: PointCloud, target_grid: HashGrid,
     read), and ``source_order``, the Morton order of the untransformed
     source."""
     if prepared is None:
-        if target_grid.normals_sorted is None:
-            raise ValueError("point-to-plane ICP needs a target grid with normals")
-        prepared = cuda_icp.prepare_target(target_grid.points_sorted,
-                                           target_grid.normals_sorted,
-                                           target_grid.hashes_sorted != INT32_MAX)
+        prepared = point_to_plane_target(target_grid)
     t_t, tn_t, tc, tv, t_layout = prepared
     layout = nn_layout.SweepLayout(t_layout, _source_order(source, source_order))
     maskf = source.mask.to(torch.float32)[..., None].contiguous()
@@ -287,15 +292,6 @@ def icp_generalized(source: PointCloud, source_covs: torch.Tensor,
     return res[0]
 
 
-def _correspondences(grid: HashGrid, pts: torch.Tensor, mask: torch.Tensor,
-                     max_dist):
-    """Nearest valid grid point of each of the (B, M, 3) points within
-    ``max_dist``, all B x M queries in one K3 launch: (idx, d2, w) (B, M)."""
-    b, m, _ = pts.shape
-    idx, d2, found = hashgrid.query_nearest(grid, pts.reshape(b * m, 3), max_dist)
-    return idx.reshape(b, m), d2.reshape(b, m), found.reshape(b, m) & mask
-
-
 def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
                                inits: torch.Tensor, max_correspondence_distance,
                                max_iterations: int = 30,
@@ -305,16 +301,21 @@ def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
     ``inits`` against one target grid: each iteration finds the
     correspondences of every hypothesis in one K3 launch, and each
     hypothesis's result is that of ``icp_point_to_point`` from its init
-    alone (converged hypotheses freeze).  The Kabsch step's SVD runs on the
-    host, one counted pull of the (B, 3, 3) moments per iteration, which
-    also reads ``done``."""
+    alone (converged hypotheses freeze).  K3's layout of the grid and the
+    Morton order of the untransformed source, which every pose shares, are
+    made once per call.  The Kabsch step's SVD runs on the host, one counted
+    pull of the (B, 3, 3) moments per iteration, which also reads
+    ``done``."""
     dev = inits.device
     bsz = inits.shape[0]
     max_dist = float(max_correspondence_distance)
+    layout = hashgrid.nearest_layout(target_grid)
+    order = nn_layout.query_order(source.points, source.mask)
 
     def corr_stats(T):
         pts = se3.transform_points(T, source.points)
-        idx, d2, w = _correspondences(target_grid, pts, source.mask, max_dist)
+        idx, d2, w = hashgrid.query_nearest(target_grid, pts, max_dist, layout, order,
+                                            source.mask)
         fit, rmse = _result_stats(d2, w, source.mask)
         return pts, idx, w, fit, rmse
 
@@ -354,9 +355,9 @@ def evaluate_registration(source: PointCloud, target_grid: HashGrid,
                           ) -> RegistrationResult:
     """Fitness/RMSE of a fixed transform (Open3D ``EvaluateRegistration``)."""
     pts = se3.transform_points(T.to(torch.float32), source.points)
-    _, d2, w = _correspondences(target_grid, pts[None], source.mask,
-                                float(max_correspondence_distance))
-    fit, rmse = _result_stats(d2[0], w[0], source.mask)
+    _, d2, w = hashgrid.query_nearest(target_grid, pts, float(max_correspondence_distance),
+                                      query_mask=source.mask)
+    fit, rmse = _result_stats(d2, w, source.mask)
     return RegistrationResult(transformation=T, fitness=fit, inlier_rmse=rmse,
                               num_iterations=torch.zeros((), dtype=torch.int32,
                                                          device=T.device))

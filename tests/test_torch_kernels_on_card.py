@@ -17,6 +17,12 @@ has no JAX, without the JAX-importing conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_on_card.py
 
+K3 runs gated (``nn_argmin_within``, the callers' entry) at the closure
+and global-localization shapes and a ragged one, on sensor-range scenes
+made to break a skip that is not exact (targets at r (1 +- 2^-20) from a
+query, tiles of one point just past the gate, negative expansion d2), with
+ties, every target or every query masked; one call is two launches.
+
 Counts (inliers, neighbours) are exact: kernel and plain version test the
 same term-by-term rounded float32 distances.  Float sums are summed in
 another order, so each entry is held at its own scale (see
@@ -32,7 +38,7 @@ import pytest
 import torch
 
 from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_icp as ti
-from open3d_slam_torch.ops import cuda_knn as tk, nn_layout
+from open3d_slam_torch.ops import cuda_knn as tk, hashgrid, nn_layout
 from open3d_slam_torch.ops import cuda_normals as tcn
 from open3d_slam_torch.ops import normals as tn
 from open3d_slam_torch.utils import pointcloud as tpc
@@ -294,6 +300,150 @@ def test_nn_argmin_kernel_breaks_ties_to_lowest_index_on_card(cuda_device):
     (gi, gd), (wi, wd) = _knn_on_card(q, t.t().contiguous(), t2)
     assert gi[:4].tolist() == [0, 1, 2, 3]
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+def _sensor_scene(rng, n, lo=30.0, hi=80.0):
+    """Wall patches 30-80 m from the origin (the expansion form rounds by
+    ~1e-3 m^2 there), in index order as a sensor returns them."""
+    walls = []
+    for _ in range(8):
+        az, rad = rng.uniform(0, 2 * np.pi), rng.uniform(lo, hi)
+        c = np.array([rad * np.cos(az), rad * np.sin(az), rng.uniform(-2, 2)])
+        s = rng.uniform(-3, 3, (n // 8, 2))
+        walls.append(c + s[:, :1] * np.array([-np.sin(az), np.cos(az), 0.0])
+                     + s[:, 1:] * np.array([0.0, 0.0, 1.0]) + rng.normal(0, 0.01, (n // 8, 3)))
+    return np.concatenate(walls).astype(np.float32)
+
+
+def _knn_layout(pts, valid, queries, qmask):
+    """K3's target layout of (pts, valid) and the Morton order of the first
+    pose's queries, on the queries' card."""
+    dev = queries.device
+    target = nn_layout.target_layout(torch.from_numpy(pts).to(dev),
+                                     torch.from_numpy(valid).to(dev))
+    qv = (torch.ones(queries.shape[1], dtype=torch.bool, device=dev) if qmask is None
+          else qmask.reshape(-1, queries.shape[1])[0])
+    return nn_layout.SweepLayout(target, nn_layout.query_order(queries[0], qv))
+
+
+def _knn_gated_on_card(queries, qmask, layout, r):
+    """``nn_argmin_within`` against the full plain sweep on the same card
+    tensors: the callers' verdict (winner's exact d2 within r, a valid
+    target) equal, the index and e bit-equal wherever it holds, (0, +inf)
+    or a rejected winner elsewhere; one counted launch.  Returns the full
+    sweep's (found, e)."""
+    b, m, _ = queries.shape
+    key = ("nn_argmin_within", (b, m, layout.target.order.shape[-1]))
+    before = cuda_build.launches[key]
+    gi, ge = tk.nn_argmin_within(queries, qmask, layout, r)
+    assert cuda_build.launches[key] == before + 1
+    assert gi.dtype == torch.int32 and ge.dtype == torch.float32 and gi.shape == (b, m)
+    wi, we = tk.nn_argmin_within_plain(queries, qmask, layout)
+    points, valid = tk.layout_targets(layout.target)
+    r2 = torch.tensor(float(r), dtype=torch.float32, device=queries.device) ** 2
+    (gf, gd2), (wf, _) = (hashgrid.gate(points, valid, queries, i, e, r)
+                          for i, e in ((gi, ge), (wi, we)))
+    assert torch.equal(gf, wf)
+    assert torch.equal(gi[wf], wi[wf])
+    assert torch.equal(ge[wf].view(torch.int32), we[wf].view(torch.int32))
+    rest = ~wf
+    assert bool((((ge[rest] == float("inf")) & (gi[rest] == 0)) | (gd2[rest] > r2)).all())
+    return wf, we
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,r", [(1, 32768, 65536, 0.3), (1, 1000, 3001, 0.3),
+                                     (64, 1024, 16384, 2.0)])
+def test_nn_argmin_within_matches_full_sweep_on_card(cuda_device, rng, b, m, n, r):
+    """The closure shape at 0.3 m and the global-localization mid stage's
+    (64 poses of one 1024-point source at 2.0 m, one shared order), and a
+    ragged size; a sensor-range scene with an invalid block (whole invalid
+    tiles) and a partial last tile; sources scattered up to 2r off targets,
+    within millimetres of them (negative e) and at r (1 +- 2^-20)."""
+    pts = _sensor_scene(rng, n // 8 * 8 + 8)[:n]
+    valid = np.ones(n, bool)
+    valid[-(n // 5):] = False
+    base = pts[rng.choice(np.flatnonzero(valid), m)]
+    k = m // 3
+    u = rng.normal(size=(m - 2 * k, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    src = np.concatenate([
+        base[:k] + rng.normal(0, r, (k, 3)),
+        base[k:2 * k] + rng.uniform(-3e-3, 3e-3, (k, 3)),
+        base[2 * k:] + r * (1 + rng.choice([-1, 1], (m - 2 * k, 1)) * 2.0 ** -20) * u,
+    ]).astype(np.float32)
+    yaw = np.linspace(0.0, 0.02, b, dtype=np.float32)
+    poses = np.stack([src @ np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                                      [0, 0, 1]], np.float32).T + np.float32(0.01 * i)
+                      for i, a in enumerate(yaw)]).astype(np.float32)
+    queries = torch.from_numpy(poses).to(cuda_device)
+    qmask = torch.from_numpy(rng.uniform(size=m) > 0.05).to(cuda_device)
+    layout = _knn_layout(pts, valid, queries, qmask)
+    found, e = _knn_gated_on_card(queries, qmask, layout, r)
+    assert 0.2 < float(found.float().mean()) < 0.97
+    assert bool((e < 0).any())
+    # Ungated on the same inputs: bit-equal to the plain version.
+    q = queries.reshape(-1, 3)
+    points, tvalid = tk.layout_targets(layout.target)
+    t2 = torch.where(tvalid, tk.squared_norms(points), float("inf"))
+    (gi, gd), (wi, wd) = _knn_on_card(q, points.t().contiguous(), t2)
+    assert torch.equal(gi, wi) and torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_nn_argmin_within_ties_masks_and_gate_edges_on_card(cuda_device):
+    """Tiles of one duplicated point each, just past and just inside the
+    gate at 80 m (the winner in e is often the one past it); exact ties to
+    the lower index across tiles; every target masked; every query
+    masked."""
+    rng = np.random.default_rng(3)
+    r, probes = 0.3, 96
+    qs, tv, tw = [], [], []
+    for p in range(probes):
+        az = 2 * np.pi * p / probes
+        Q = np.array([80 * np.cos(az), 80 * np.sin(az), 1.0])
+        u, w = rng.normal(size=(2, 3))
+        qs.append(np.repeat(Q[None], 64, 0))
+        tv.append(np.repeat((Q + r * (1 - 2.0 ** -12) * u / np.linalg.norm(u))[None], 128, 0))
+        tw.append(np.repeat((Q + r * (1 + 2.0 ** -12) * w / np.linalg.norm(w))[None], 128, 0))
+    pts = np.concatenate(tw + tv).astype(np.float32)
+    queries = torch.from_numpy(np.concatenate(qs).astype(np.float32))[None].to(cuda_device)
+    valid = np.ones(len(pts), bool)
+    layout = _knn_layout(pts, valid, queries, None)
+    found, _ = _knn_gated_on_card(queries, None, layout, r)
+    assert 0 < int(found.sum()) < found.numel()
+    gi, _ = tk.nn_argmin_within(queries, None, layout, r)
+    assert bool((gi[found] % 128 == 0).all())          # the first copy of each run
+    for name, lay, qmask in (
+            ("all_masked", _knn_layout(pts, ~valid, queries, None), None),
+            ("no_query", layout, torch.zeros(queries.shape[1], dtype=torch.bool,
+                                             device=cuda_device))):
+        gi, ge = tk.nn_argmin_within(queries, qmask, lay, r)
+        assert int(gi.abs().max()) == 0 and bool(torch.isinf(ge).all()), name
+        _knn_gated_on_card(queries, qmask, lay, r)
+
+
+@pytest.mark.cuda
+def test_nn_argmin_within_is_two_kernel_launches_on_card(cuda_device, rng):
+    """One call launches the sweep and the decode and nothing else; two
+    calls on the same inputs are bit-equal (the decode leaves the keys all
+    ones)."""
+    pts = _sensor_scene(rng, 4096)
+    queries = torch.from_numpy(pts[rng.choice(4096, 1024)] + np.float32(0.05))[None]
+    queries = queries.contiguous().to(cuda_device)
+    layout = _knn_layout(pts, np.ones(4096, bool), queries, None)
+    first = tk.nn_argmin_within(queries, None, layout, 0.3)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        again = tk.nn_argmin_within(queries, None, layout, 0.3)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in sorted((e for e in prof.events() if e.device_type == cuda),
+                                    key=lambda e: e.time_range.start)]
+    assert len(names) == 2, names
+    assert "knn_sweep" in names[0] and "knn_decode" in names[1], names
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 def _p2l_problem(rng, dev, batch, m, n, shared):
