@@ -23,6 +23,19 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      as users run it (loop closures on, undistortion on), counts reset
      again, and checks that a closure was accepted and applied, the ATE,
      and that every kernel of that path ran;
+  5a. replays them once more with the dense map on as well
+     (``mapper.is_build_dense_map`` with the file's own dense map builder:
+     0.05 m voxels, a 15 m crop, a carve every 10 scans, 524288 voxels a
+     submap), and checks that the poses are bit-equal to step 5's (the dense
+     map is write-only for tracking), that the closure moved dense stores,
+     that carving removed voxels and that the dense stage made no host sync
+     (the counted pulls equal step 5's, and torch's sync debug mode flags
+     nothing in it); prints the dense stage's p50 and p99 ms per scan, the
+     voxels per submap and the store's bytes, then writes the dense submaps
+     as PCDs and reads them back equal to ``get_dense_map_cloud``;
+  5b. runs the first scans of step 4 through ``AsyncSlamDriver`` (ingest on
+     this thread, the pipeline and every kernel launch on its worker) and
+     checks the poses against step 4's sequential poses;
   6. localizes, through ``cli.localization.main`` as a VLP-16 user runs it,
      the first scans of step 3 against the map of step 3's submap 0 (saved
      as a PCD, the scans as a sequence folder) from step 3's first pose, and
@@ -44,8 +57,8 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
-Steps 6 to 8 each set every launch count to 0 just before and read it just
-after, and fail if a kernel of their path did not run.
+Steps 5a, 5b and 6 to 8 each set every launch count to 0 just before and
+read it just after, and fail if a kernel of their path did not run.
 
 It exits non-zero, and prints no result line, on any failure, without a
 card, or when run outside the repository.
@@ -59,6 +72,7 @@ import os
 import re
 import sys
 import time
+import warnings
 
 ATE_LIMIT_M = 0.15          # trajectory error allowed against ground truth
 SEQUENCE = "vlp16_yard_circle"
@@ -546,8 +560,204 @@ def global_localization(cuda_build, cfg, datasets, pclib, multi_start):
     return good == len(errs) and not missing, counts
 
 
+def dense_replay(full, seq, scans, full_poses, full_syncs, here, cuda_build, devmod,
+                 evaluation, pcd, pclib, SlamWrapper):
+    """Step 5a: step 5's replay with the dense map on.  Returns (ok, the
+    launch counts)."""
+    import copy
+    import numpy as np
+    import torch
+    from open3d_slam_torch.ops import dense_map
+    params = copy.deepcopy(full)
+    params.mapper.is_build_dense_map = True
+    b, cap = params.mapper.dense_map_builder, params.capacities.dense_submap_voxels
+    print(f"step 5a: dense map on, voxel {b.map_voxel_size} m, crop "
+          f"{b.cropper.cropping_max_radius} m, carve every "
+          f"{b.carving.carve_space_every_n_scans} scans, {cap} voxels a submap "
+          f"({dense_map.BYTES_PER_VOXEL} bytes a voxel: "
+          f"{dense_map.BYTES_PER_VOXEL * cap} bytes a submap, "
+          f"{dense_map.BYTES_PER_VOXEL * cap * params.capacities.max_submaps} at "
+          f"{params.capacities.max_submaps} submaps)", flush=True)
+    slam = SlamWrapper(params, device="cuda")
+    slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probe = DenseStageProbe(slam, dense_map)
+    # The detector's control: a pull to the host must be reported.
+    _, control = probe.syncs_in(lambda: torch.ones(1, device="cuda").sum().item())
+    if not control:
+        fail("torch's sync debug mode did not report a .item() pull")
+    probe.install()
+    try:
+        per_scan_ms, wall_s, counts, syncs = replay(slam, scans, cuda_build, devmod)
+    finally:
+        probe.remove_probes()
+    peak = torch.cuda.max_memory_allocated()
+    poses, ate, _ = check_trajectory(slam, seq, len(scans), evaluation)
+    health = slam.get_health()
+    n = len(scans)
+    voxels = [int(v) for v in devmod.to_host(*[s.dense_map.num_voxels()
+                                                for s in slam.submaps.submaps])]
+    removed = int(devmod.to_host(probe.removed)[0][()])
+    host = np.percentile(probe.host_ms, [50, 99])
+    dev_ms = np.array(probe.device_ms())
+    dev = np.percentile(dev_ms, [50, 99])
+    carved = np.array(probe.carved)
+    digest, want = poses_sha1(poses), poses_sha1(full_poses)
+    print(f"dense replay: {n} scans, per-scan p50 {np.median(per_scan_ms):.2f} ms, "
+          f"host syncs {syncs} ({full_syncs} in step 5), poses sha1 {digest} "
+          f"(step 5: {want}), ATE rmse {ate.rmse:.4f} m, closures "
+          f"{health['n_loop_closures_accepted']}, optimisations applied "
+          f"{health['n_optimizations_applied']}, dense stores moved {probe.moves}")
+    print(f"dense stage ({len(probe.host_ms)} calls): host ms p50 {host[0]:.3f} p99 "
+          f"{host[1]:.3f}; device ms between its events p50 {dev[0]:.3f} p99 "
+          f"{dev[1]:.3f} (scans without a carve p50 {np.median(dev_ms[~carved]):.3f}, "
+          f"with one p50 {np.median(dev_ms[carved]):.3f}); synchronising operations "
+          f"in it {len(probe.sync_warnings)} (torch's sync debug mode; it reported "
+          f"{len(control)} for one .item()); carves "
+          f"{probe.carves} removed {removed} voxels; dense voxels per submap "
+          f"{voxels}; peak device memory {peak} bytes; launches "
+          f"{json.dumps(shape_counts(counts))}", flush=True)
+    ok = True
+    if digest != want or syncs != full_syncs or probe.sync_warnings:
+        print(f"the dense stage moved the poses or synchronised: "
+              f"{probe.sync_warnings[:3]}", file=sys.stderr)
+        ok = False
+    if health["n_optimizations_applied"] < 1 or probe.moves < 1 or removed <= 0 \
+            or len(probe.host_ms) != n or voxels[0] <= 0:
+        print("dense replay: no closure moved a dense store, carving removed "
+              "nothing, or a submap's dense map is empty", file=sys.stderr)
+        ok = False
+    folder = os.path.join(here, "o3d_slam_out", "chip_smoke_dense")
+    os.makedirs(folder, exist_ok=True)
+    slam.dump_submaps("dense_submap", dense=True, folder=folder)
+    back = [pcd.read_pcd(os.path.join(folder, f"dense_submap_{i}.pcd"))
+            for i in range(slam.submaps.get_num_submaps())]
+    want_cloud = slam.get_dense_map_cloud()
+    # A PCD packs colours 8 bits a channel.
+    want_cloud["colors"] = (np.clip(want_cloud["colors"] * 255.0, 0, 255)
+                            .astype(np.uint32).astype(np.float32) / 255.0)
+    same = all(np.array_equal(np.concatenate([c[k] for c in back if len(c["points"])]),
+                              want_cloud[k]) for k in ("points", "normals", "colors"))
+    print(f"dense PCDs: {len(back)} files, {sum(len(c['points']) for c in back)} "
+          f"points, equal to get_dense_map_cloud {same}", flush=True)
+    missing = missing_kernels(cuda_build, counts, ("gicp_normal_eq", "kth_neighbor_d2_within",
+                                                   "radius_moments_at", "nn_argmin_within"))
+    if missing or not same:
+        print(f"dense replay never launched {missing}, or its PCDs differ",
+              file=sys.stderr)
+        ok = False
+    return ok, counts
+
+
+def async_replay(params, scans, seq_poses, cuda_build, AsyncSlamDriver, SlamWrapper):
+    """Step 5b: step 4's first scans through ``AsyncSlamDriver``; its worker
+    thread launches every kernel.  Returns (ok, the launch counts)."""
+    import numpy as np
+    slam = SlamWrapper(params, device="cuda")
+    cuda_build.launches.clear()
+    t0 = time.perf_counter()
+    with AsyncSlamDriver(slam) as driver:
+        for points, ts in scans[:N_DETERMINISM]:
+            deadline = time.monotonic() + 120.0
+            while driver.is_backpressured():
+                if time.monotonic() > deadline:
+                    fail("the online driver stopped draining its buffers")
+                time.sleep(0.001)
+            driver.add_range_scan(points, ts)
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launches)
+    _, poses = slam.get_trajectory()
+    dev = max((float(np.abs(a - b).max()) for a, b in zip(poses, seq_poses)),
+              default=float("inf"))
+    equal = len(poses) == len(seq_poses) and all(
+        np.array_equal(a, b) for a, b in zip(poses, seq_poses))
+    print(f"online driver: {len(poses)} of {N_DETERMINISM} scans in {wall:.2f} s; "
+          f"against step 4's sequential poses max abs difference {dev:.3e} (tol "
+          f"1e-6), bit-equal {equal}; launches {json.dumps(shape_counts(counts))}",
+          flush=True)
+    missing = missing_kernels(cuda_build, counts, ("gicp_normal_eq", "kth_neighbor_d2_within",
+                                                   "radius_moments_at"))
+    if missing:
+        print(f"the online driver never launched {missing}", file=sys.stderr)
+    return len(poses) == N_DETERMINISM and dev <= 1e-6 and not missing, counts
+
+
 def shape_counts(counts):
     return {f"{k}{list(s)}": c for (k, s), c in sorted(counts.items())}
+
+
+class DenseStageProbe:
+    """Stands in for a wrapper's ``submaps.insert_scan_dense_map`` during a
+    replay: host ms and device ms (CUDA events, read after the replay) per
+    call, the synchronising operations torch's sync debug mode reports in
+    it, and, through ``dense_map.remove_keys`` and ``dense_map.transform``,
+    the voxels carving removed (summed on the card) and the stores moved."""
+
+    def __init__(self, slam, dense_map):
+        import torch
+        self.slam, self.dense_map = slam, dense_map
+        self.insert = slam.submaps.insert_scan_dense_map
+        self.remove, self.move = dense_map.remove_keys, dense_map.transform
+        self.host_ms, self.events, self.sync_warnings, self.carved = [], [], [], []
+        self.removed = torch.zeros((), dtype=torch.int64, device=slam.device)
+        self.carves = self.moves = 0
+
+    @staticmethod
+    def syncs_in(fn):
+        """(fn's result, the synchronising operations torch's sync debug
+        mode reports while it runs)."""
+        import torch
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # Each one warns "called a synchronizing CUDA operation"; the mode's
+        # notice that it is a prototype does not.
+        return out, [str(w.message) for w in caught
+                     if "called a synchronizing" in str(w.message)]
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def timed():
+            t = time.perf_counter()
+            start.record()
+            out = self.insert(*args, **kwargs)
+            end.record()
+            self.host_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        carves = self.carves
+        out, syncs = self.syncs_in(timed)
+        self.sync_warnings += syncs
+        self.events.append((start, end))
+        self.carved.append(self.carves > carves)
+        return out
+
+    def _remove(self, vm, *args, **kwargs):
+        out = self.remove(vm, *args, **kwargs)
+        self.removed += vm.num_voxels() - out.num_voxels()
+        self.carves += 1
+        return out
+
+    def _move(self, *args, **kwargs):
+        self.moves += 1
+        return self.move(*args, **kwargs)
+
+    def install(self):
+        self.slam.submaps.insert_scan_dense_map = self
+        self.dense_map.remove_keys, self.dense_map.transform = self._remove, self._move
+
+    def remove_probes(self):
+        self.dense_map.remove_keys, self.dense_map.transform = self.remove, self.move
+
+    def device_ms(self):
+        return [s.elapsed_time(e) for s, e in self.events]
 
 
 def replay(slam, scans, cuda_build, devmod):
@@ -592,6 +802,7 @@ def main() -> int:
         import numpy as np
         from open3d_slam_torch.cli import localization
         from open3d_slam_torch.io import datasets, lidar_sim, pcd
+        from open3d_slam_torch.models.async_driver import AsyncSlamDriver
         from open3d_slam_torch.models.slam_wrapper import SlamWrapper
         from open3d_slam_torch.ops import (cuda_build, cuda_gicp, cuda_icp, cuda_knn,
                                            cuda_normals)
@@ -737,6 +948,7 @@ def main() -> int:
     print(f"health: {json.dumps(health)}")
     print(f"kernel launches in the full replay: {json.dumps(shape_counts(full_key))}",
           flush=True)
+    full_poses, full_syncs = poses, syncs
     del slam
     if health["n_loop_closures_accepted"] < 1:
         print("no loop closure was accepted", file=sys.stderr)
@@ -753,6 +965,16 @@ def main() -> int:
             ok = False
     for rec in recorders:
         rec.frozen = set(rec.inputs)
+
+    # 5a. The dense map on, with step 5's configuration and scans.
+    good, dense_key = dense_replay(full, seq, scans, full_poses, full_syncs, here,
+                                   cuda_build, devmod, evaluation, pcd, pclib, SlamWrapper)
+    ok = ok and good
+
+    # 5b. The online driver over step 4's first scans.
+    good, async_key = async_replay(params, scans, seq_poses, cuda_build, AsyncSlamDriver,
+                                   SlamWrapper)
+    ok = ok and good
 
     # 6. The localization CLI as a VLP-16 user runs it.
     good, cli_key = cli_localization(loc_dir, replay_poses, cuda_build, cfg, localization)
@@ -791,7 +1013,7 @@ def main() -> int:
         ok = False
     for rec in recorders:
         rec.remove()
-    phases = (full_key, by_key, cli_key, global_key, p2l_key)
+    phases = (full_key, by_key, dense_key, async_key, cli_key, global_key, p2l_key)
     if set().union(*phases) != {key for rec in recorders for key in rec.inputs}:
         print("a launch key has no recorded inputs", file=sys.stderr)
         ok = False

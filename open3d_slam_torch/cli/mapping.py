@@ -1,14 +1,20 @@
 """Mapping CLI — the port's ``mapping_node``.
 
-Port of ``open3d_slam_tpu.cli.mapping``: load the layered config, replay a
-scan sequence as fast as possible (pipelined unless ``--no-pipeline``),
-``finish_processing``, then evaluate the trajectory against the sequence's
-ground truth.  Runs on ``cuda`` unless ``--device cpu`` is given.
+Port of ``open3d_slam_tpu.cli.mapping`` (``mapping_node.cpp:14-46`` with
+the offline replay of ``RosbagRangeDataProcessorRos.cpp:52-125``): load the
+layered config, replay a scan sequence as fast as possible (pipelined unless
+``--no-pipeline``), optionally accumulating N clouds into one scan and
+stopping after a wall-clock budget, ``finish_processing``, save the map,
+the submaps or the dense submaps, then evaluate the trajectory against the
+sequence's ground truth.  Runs on ``cuda`` unless ``--device cpu`` is given.
 
 Usage:
   python -m open3d_slam_torch.cli.mapping --sim vlp16_yard_circle
       [--device cuda|cpu] [--max-scans N] [--param <yaml>] [--undistort]
-      [--eval-json PATH] [--save-map [--save-folder DIR]]
+      [--eval-json PATH] [--save-map] [--save-submaps] [--save-dense-submaps]
+      [--save-folder DIR] [--num-accumulated-range-data N] [--max-wall-sec S]
+  python -m open3d_slam_torch.cli.mapping --kitti DIR   (velodyne/*.bin,
+      times.txt, poses.txt; the HDL-64 config unless --param is given)
   python -m open3d_slam_torch.cli.mapping --sequence DIR --param <yaml>
       --save-map --save-folder DIR    (then cli.localization --map DIR/map.pcd)
   python -m open3d_slam_torch.cli.mapping --synthetic N --device cpu
@@ -41,6 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sim", metavar="NAME",
                     help="run a named simulated spinning-beam sequence "
                          "(io.lidar_sim.BENCHMARK_SEQUENCES; 'list' to enumerate)")
+    ap.add_argument("--kitti", metavar="DIR",
+                    help="replay a KITTI odometry sequence directory (velodyne/*.bin "
+                         "and optional times.txt, poses.txt); defaults to the "
+                         "HDL-64 sensor config")
     ap.add_argument("--max-scans", type=int, default=0,
                     help="replay at most this many scans of the sequence")
     ap.add_argument("--param", help="YAML/JSON parameter override file")
@@ -51,6 +61,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-folder", default="./o3d_slam_out")
     ap.add_argument("--save-map", action="store_true",
                     help="write the assembled map to <save-folder>/map.pcd")
+    ap.add_argument("--save-submaps", action="store_true",
+                    help="write each submap's map to <save-folder>/submap_<i>.pcd")
+    ap.add_argument("--save-dense-submaps", action="store_true",
+                    help="write each submap's dense map to "
+                         "<save-folder>/dense_submap_<i>.pcd")
+    ap.add_argument("--num-accumulated-range-data", type=int, default=1,
+                    help="clouds concatenated into one scan (DataProcessorRos)")
+    ap.add_argument("--max-wall-sec", type=float, default=0.0,
+                    help="stop the replay after this many wall seconds (0: no "
+                         "limit); finish_processing still runs")
     ap.add_argument("--no-skip-first", action="store_true",
                     help="replay the first clouds too (the reference skips 5)")
     ap.add_argument("--no-pipeline", action="store_true",
@@ -69,21 +89,42 @@ def load_params(param_file: Optional[str]) -> cfg.SlamParameters:
 
 def run_sequence(slam: SlamWrapper, seq: datasets.SyntheticSequence,
                  skip_first: int = SKIP_FIRST_N_POINT_CLOUDS,
-                 pipelined: bool = True) -> float:
-    """Offline replay; returns the realtime factor (data time / wall time)."""
+                 pipelined: bool = True, num_accumulated: int = 1,
+                 max_wall_sec: float = 0.0) -> float:
+    """Offline replay; returns the realtime factor (data time / wall time).
+    Every ``num_accumulated`` clouds are concatenated into one scan, stamped
+    with the last one's time; with ``max_wall_sec`` > 0 the replay stops
+    after that many wall seconds."""
     t_start = time.monotonic()
     n = 0
+    accum = []
+    t_first = t_last = None
     for i, (scan, ts) in enumerate(zip(seq.scans, seq.timestamps)):
+        if max_wall_sec > 0 and time.monotonic() - t_start > max_wall_sec:
+            print(f"--max-wall-sec {max_wall_sec:g} reached; stopping at scan "
+                  f"{i}/{len(seq.scans)}")
+            break
         if i < skip_first:
             continue
+        accum.append(scan)
+        if len(accum) < num_accumulated:
+            continue
+        points = np.concatenate(accum, axis=0)
+        accum = []
+        # Backpressure (RosbagRangeDataProcessorRos.cpp:69-84): the replay
+        # keeps at most one scan in flight, so the buffers never fill here.
+        while slam.is_odometry_buffer_full() or slam.is_mapping_buffer_full():
+            slam.process_queued()
         if pipelined:
-            slam.process_scan_pipelined(scan, ts)
+            slam.process_scan_pipelined(points, ts)
         else:
-            slam.process_scan(scan, ts)
+            slam.process_scan(points, ts)
+        t_first = ts if t_first is None else t_first
+        t_last = ts
         n += 1
     slam.finish_processing()
     wall = time.monotonic() - t_start
-    data = seq.timestamps[-1] - seq.timestamps[skip_first] if n > 1 else 0.0
+    data = t_last - t_first if n > 1 else 0.0
     rtf = data / wall if wall > 0 else 0.0
     print(f"DONE: {data:.1f} s of data in {wall:.1f} s -> {rtf:.2f}x realtime "
           f"({n} scans)")
@@ -106,6 +147,21 @@ def main(argv=None) -> int:
         print(f"rendering simulated sequence {spec.name} ({spec.n_scans} scans)...")
         seq = lidar_sim.make_sim_sequence(spec, cache_dir="")
         seq_name = spec.name
+    elif args.kitti:
+        from open3d_slam_torch.io import kitti
+        vdir = args.kitti
+        if os.path.isdir(os.path.join(vdir, "velodyne")):
+            seq_dir, vdir = vdir, os.path.join(vdir, "velodyne")
+        else:
+            seq_dir = os.path.dirname(vdir.rstrip("/")) or vdir
+        seq = kitti.load_kitti_sequence(
+            vdir, times_file=os.path.join(seq_dir, "times.txt"),
+            poses_file=os.path.join(seq_dir, "poses.txt"),
+            max_scans=args.max_scans or None)
+        seq_name = "kitti_" + os.path.basename(os.path.abspath(seq_dir))
+        if args.param is None:
+            args.param = cfg.config_path("velodyne_hdl64_kitti.yaml")
+            print("using sensor config", args.param)
     elif args.sequence:
         seq = datasets.load_sequence(args.sequence)
         seq_name = os.path.basename(os.path.normpath(args.sequence))
@@ -115,7 +171,7 @@ def main(argv=None) -> int:
             radius=12.0, angle_total=2 * np.pi * 1.05)
         seq_name = f"synthetic_circle_{args.synthetic}"
     else:
-        print("need --sequence, --sim or --synthetic", file=sys.stderr)
+        print("need --sequence, --sim, --kitti or --synthetic", file=sys.stderr)
         return 2
     if args.max_scans:
         seq = datasets.SyntheticSequence(
@@ -128,15 +184,25 @@ def main(argv=None) -> int:
         params.motion_compensation.is_undistort_input_cloud = True
     if args.save_map:
         params.saving.is_save_map = True
+    if args.save_submaps:
+        params.saving.is_save_submaps = True
+    if args.save_dense_submaps:
+        params.saving.is_save_dense_submaps = True
     slam = SlamWrapper(params, device=device)
     slam.folder_path = args.save_folder
     n_skip = 0 if args.no_skip_first else SKIP_FIRST_N_POINT_CLOUDS
     t0 = time.time()
     slam.warmup(scans=seq.scans[:n_skip], timestamps=seq.timestamps[:n_skip])
     print(f"warmed up in {time.time() - t0:.1f} s")
-    rtf = run_sequence(slam, seq, skip_first=n_skip, pipelined=not args.no_pipeline)
+    rtf = run_sequence(slam, seq, skip_first=n_skip, pipelined=not args.no_pipeline,
+                       num_accumulated=args.num_accumulated_range_data,
+                       max_wall_sec=args.max_wall_sec)
     if params.saving.is_save_map or params.saving.is_save_at_mission_end:
         print("saved map to", slam.save_map())
+    if params.saving.is_save_submaps:
+        slam.dump_submaps("submap")
+    if params.saving.is_save_dense_submaps:
+        slam.dump_submaps("dense_submap", dense=True)
 
     times, poses = slam.get_trajectory()
     if not seq.ground_truth or len(poses) <= 2:

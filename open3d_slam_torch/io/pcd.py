@@ -37,7 +37,8 @@ def write_pcd(path: str, points: np.ndarray,
         c = np.clip(np.asarray(colors, np.float64) * 255.0, 0, 255).astype(np.uint32)
         rgb = (c[:, 0] << 16) | (c[:, 1] << 8) | c[:, 2]
         arrays.append(rgb.view(np.float32).reshape(n, 1))
-    data = np.concatenate([a.reshape(n, -1) for a in arrays], axis=1).astype(np.float32)
+    # Every array is (n, k) already: an empty cloud writes a header alone.
+    data = np.concatenate(arrays, axis=1).astype(np.float32)
 
     header = (
         "# .PCD v0.7 - Point Cloud Data file format\n"
@@ -113,7 +114,7 @@ def read_pcd(path: str) -> Dict[str, np.ndarray]:
         if data_mode == "binary":
             dt = np.dtype([(f"f{i}", b, (c,)) for i, (b, c) in enumerate(np_types)])
             raw = np.frombuffer(f.read(dt.itemsize * n), dtype=dt, count=n)
-            cols = {name: np.asarray(raw[f"f{i}"]).reshape(n, -1)
+            cols = {name: np.asarray(raw[f"f{i}"]).reshape(n, np_types[i][1])
                     for i, name in enumerate(fields)}
         elif data_mode == "ascii":
             txt = np.loadtxt(f, dtype=np.float64, ndmin=2)

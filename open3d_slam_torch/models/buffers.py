@@ -2,14 +2,15 @@
 
 Port of ``open3d_slam_tpu.models.buffers``.  Mirrors the reference's ``TransformInterpolationBuffer``
 (``src/TransformInterpolationBuffer.cpp:21-157``) and ``CircularBuffer``
-(``CircularBuffer.hpp:13-67``).  The engine runs a sequential,
-deterministic host pipeline (no worker threads racing), so these are plain
-Python structures.  (The ``ThreadSafeBuffer`` of the async driver arrives
-with the multi-GPU slice.)
+(``CircularBuffer.hpp:13-67``).  The pose buffers are read and written by
+the pipeline's one thread.  ``CircularBuffer`` takes a lock: the async
+driver (``models/async_driver.py``) pushes scans from the caller's thread
+while its worker pops them.
 """
 from __future__ import annotations
 
 import bisect
+import threading
 from collections import deque
 from typing import Deque, Generic, List, Optional, TypeVar
 
@@ -108,20 +109,26 @@ class CircularBuffer(Generic[T]):
     def __init__(self, size_limit: int = 1):
         self._dq: Deque[T] = deque()
         self.size_limit = int(size_limit)
+        self._lock = threading.Lock()
 
     def push(self, item: T):
-        self._dq.append(item)
-        while len(self._dq) > self.size_limit:
-            self._dq.popleft()
+        with self._lock:
+            self._dq.append(item)
+            while len(self._dq) > self.size_limit:
+                self._dq.popleft()
 
     def pop(self) -> Optional[T]:
-        return self._dq.popleft() if self._dq else None
+        with self._lock:
+            return self._dq.popleft() if self._dq else None
 
     def peek_back(self) -> Optional[T]:
-        return self._dq[-1] if self._dq else None
+        with self._lock:
+            return self._dq[-1] if self._dq else None
 
     def __len__(self):
-        return len(self._dq)
+        with self._lock:
+            return len(self._dq)
 
     def full(self) -> bool:
-        return len(self._dq) >= self.size_limit
+        with self._lock:
+            return len(self._dq) >= self.size_limit

@@ -77,6 +77,23 @@ class Mapper:
         return {k: np.concatenate([d[k] for d in parts if k in d], axis=0)
                 for k in parts[0]}
 
+    def set_map_to_range_sensor(self, T: np.ndarray):
+        self.map_to_range_sensor = np.asarray(T, np.float64)
+
+    def has_processed_measurements(self) -> bool:
+        return not self.map_to_range_sensor_buffer.empty()
+
+    def get_map_to_range_sensor(self, t: float) -> np.ndarray:
+        return self.map_to_range_sensor_buffer.lookup_clamped(t)
+
+    def get_map_to_odom(self, t: float) -> np.ndarray:
+        """``getMapToOdom`` (``Mapper.cpp:58-63``)."""
+        odom = self.odom_to_range_sensor_buffer.lookup_clamped(t)
+        return self.map_to_range_sensor_buffer.lookup_clamped(t) @ np.linalg.inv(odom)
+
+    def get_active_submap(self):
+        return self.submaps.get_active_submap()
+
     def set_map_to_range_sensor_initial(self, T: np.ndarray):
         """``setMapToRangeSensorInitial`` (``Mapper.cpp:88-92``)."""
         T = np.asarray(T, np.float64)

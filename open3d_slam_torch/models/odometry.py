@@ -196,6 +196,23 @@ class LidarOdometry:
         self._cum_dev = cum
         return last_ok
 
+    def add_range_scan(self, cloud: PointCloud, timestamp: float) -> bool:
+        """Process one scan and return isOdomOkay (``Odometry.cpp:32-79``):
+        dispatch, then finalize at once (one pull)."""
+        r = self.add_range_scan_async(cloud, timestamp)
+        if isinstance(r, OdometryPending):
+            return self.finalize_pending()
+        return r
+
+    def get_odom_to_range_sensor(self, t: float) -> np.ndarray:
+        return self.odom_buffer.lookup_clamped(t)
+
+    def get_pre_processed_cloud(self) -> Optional[PointCloud]:
+        return None if self.prev is None else self.prev.cloud
+
+    def has_processed_measurements(self) -> bool:
+        return not self.odom_buffer.empty()
+
     def set_initial_transform(self, T: np.ndarray):
         """``setInitialTransform`` (``Odometry.cpp:102-110``)."""
         self._initial_transform = np.asarray(T, np.float64).copy()

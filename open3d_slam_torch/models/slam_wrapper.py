@@ -3,17 +3,19 @@
 Port of ``open3d_slam_tpu.models.slam_wrapper`` (reference
 ``SlamWrapper.cpp:43-487``): ingest (NaN removal, out-of-order rejection),
 constant-velocity undistortion, the odometry stage, the mapping stage
-(scan-to-map registration, gates, submap insert), feature computation and
+(scan-to-map registration, gates, submap insert), the dense-map stage
+(``denseMapWorker``, :363-386: the undistorted scan merged into the active
+submap's dense store at the mapper's pose), feature computation and
 odometry constraints for finished submaps, the resumable loop-closure job,
 the pose-graph solve and the rewrite of submaps and mapper pose, pipelined
-replay with one scan in flight, and ``finish_processing`` with its final
-closure round.  The reference's worker threads become a sequential,
-deterministic host pipeline feeding the device.
+replay with one scan in flight, ``finish_processing`` with its final
+closure round, saving, and the map accessors for visualization.  The
+reference's worker threads become a sequential, deterministic host pipeline
+feeding the device (``models/async_driver.py`` runs it in one worker thread
+beside the caller's ingest).
 
 Localization mode: ``set_initial_map`` and ``set_initial_transform``.  The
-dense map arrives with a later slice of the port; a configuration that turns
-it on is refused.  The wrapper runs on ``cuda`` unless the caller asks for
-another device.
+wrapper runs on ``cuda`` unless the caller asks for another device.
 """
 from __future__ import annotations
 
@@ -38,14 +40,6 @@ from open3d_slam_torch.utils.device import resolve_device, to_device, to_host
 from open3d_slam_torch.utils.timeutil import TelemetryRegistry
 
 
-def _check_supported(p: SlamParameters):
-    if p.mapper.is_build_dense_map:
-        raise NotImplementedError(
-            "mapper.is_build_dense_map is set, but it is not ported yet: it "
-            "arrives with the dense-map slice of the port (see ROADMAP.md); "
-            "set it to false")
-
-
 class TimestampedPointCloud:
     __slots__ = ("time", "cloud", "odom_pending")
 
@@ -59,7 +53,6 @@ class SlamWrapper:
     def __init__(self, params: Optional[SlamParameters] = None, device=None):
         self.params = params or SlamParameters()
         p = self.params
-        _check_supported(p)
         self.device = resolve_device(device)
         cap = p.capacities
         self.telemetry = TelemetryRegistry(
@@ -68,6 +61,7 @@ class SlamWrapper:
                                       processed_capacity=cap.processed_scan,
                                       device=self.device)
         self.submaps = SubmapCollection(p.mapper, map_capacity=cap.submap_points,
+                                        dense_capacity=cap.dense_submap_voxels,
                                         feature_capacity=cap.feature_cloud,
                                         device=self.device)
         self.mapper = Mapper(p.mapper, self.odometry.odom_buffer, self.submaps,
@@ -89,7 +83,8 @@ class SlamWrapper:
         self.latest_scan_to_map_refinement_time: Optional[float] = None
         self.folder_path = "."
         self._raw_capacity = cap.raw_scan
-        # in-flight pipelined mapping step: (MapperPending, measurement)
+        # in-flight pipelined mapping step: (MapperPending, measurement, the
+        # undistorted cloud the dense stage takes)
         self._map_pending = None
         self._lc_job = None                          # in-flight loop-closure job
         self._pending_constraint_pulls: List = []    # queued, not yet pulled
@@ -113,6 +108,12 @@ class SlamWrapper:
                                  device=self.device)
         self.odometry_buffer.push(TimestampedPointCloud(timestamp, cloud))
         return True
+
+    def is_odometry_buffer_full(self) -> bool:
+        return self.odometry_buffer.full()
+
+    def is_mapping_buffer_full(self) -> bool:
+        return self.mapping_buffer.full()
 
     # ------------------------------------------------------------------
     # Stages
@@ -171,14 +172,20 @@ class SlamWrapper:
                 cloud, measurement.time, odom_pending=measurement.odom_pending)
             if mp is not None:
                 self.mapper.finalize_range_measurement(mp)
-        self._after_mapping(measurement)
+        self._after_mapping(measurement, cloud)
         return True
 
-    def _after_mapping(self, measurement: TimestampedPointCloud):
-        """Stages downstream of the mapper (:388-405): features and odometry
-        constraints of finished submaps, one step of the loop-closure job,
-        and the optimised graph when one is waiting."""
+    def _after_mapping(self, measurement: TimestampedPointCloud, cloud):
+        """Stages downstream of the mapper: the dense map (:363-386), with the
+        undistorted ``cloud`` at the mapper's pose after the scan's finalize;
+        features and odometry constraints of finished submaps, one step of
+        the loop-closure job, and the optimised graph when one is waiting
+        (:388-405).  The dense stage reads nothing back from the device."""
         self.latest_scan_to_map_refinement_time = measurement.time
+        if self.params.mapper.is_build_dense_map:
+            with self.telemetry.timer("dense_map", sampled=True):
+                self.submaps.insert_scan_dense_map(
+                    cloud, self.mapper.map_to_range_sensor, measurement.time)
         if self.params.mapper.is_attempt_loop_closures:
             self.compute_features_if_ready()
             self.attempt_loop_closures_if_ready()
@@ -189,11 +196,11 @@ class SlamWrapper:
         """Finalize the in-flight pipelined mapping step, if any."""
         if self._map_pending is None:
             return False
-        mp, measurement = self._map_pending
+        mp, measurement, cloud = self._map_pending
         self._map_pending = None
         with self.telemetry.timer("mapping", sampled=True):
             self.mapper.finalize_range_measurement(mp)
-        self._after_mapping(measurement)
+        self._after_mapping(measurement, cloud)
         return True
 
     # ------------------------------------------------------------------
@@ -359,9 +366,9 @@ class SlamWrapper:
             cloud, measurement.time, odom_pending=measurement.odom_pending,
             processed=processed)
         if mp is not None:
-            self._map_pending = (mp, measurement)
+            self._map_pending = (mp, measurement, cloud)
         else:
-            self._after_mapping(measurement)
+            self._after_mapping(measurement, cloud)
         return True
 
     def finish_processing(self):
@@ -476,17 +483,14 @@ class SlamWrapper:
 
     def dump_submaps(self, prefix: str, dense: bool = False,
                      folder: Optional[str] = None):
-        """Each submap's sparse map cloud as ``<prefix>_<i>.pcd``.  Dense
-        submaps arrive with the dense-map slice."""
+        """Each submap's sparse map cloud, or with ``dense`` its dense map's
+        voxel means with their normals and colours, as ``<prefix>_<i>.pcd``."""
         from open3d_slam_torch.io import pcd
-        if dense:
-            raise NotImplementedError("dense submaps arrive with the dense-map "
-                                      "slice of the port (see ROADMAP.md)")
         folder = folder or self.folder_path
         os.makedirs(folder, exist_ok=True)
         for i, s in enumerate(self.submaps.submaps):
-            pcd.write_pcd(os.path.join(folder, f"{prefix}_{i}.pcd"),
-                          **pclib.to_numpy(s.map_cloud))
+            data = _dense_cloud(s) if dense else pclib.to_numpy(s.map_cloud)
+            pcd.write_pcd(os.path.join(folder, f"{prefix}_{i}.pcd"), **data)
 
     # ------------------------------------------------------------------
 
@@ -507,3 +511,41 @@ class SlamWrapper:
             "n_merge_skips_min_movement": self.mapper.n_merge_skips_min_movement,
             "n_map_points": self.submaps.get_total_num_points(),
         }
+
+    # ------------------------------------------------------------------
+    # Map accessors for visualization (``SlamWrapperRos::publishMaps``,
+    # ``SlamWrapperRos.cpp:222-244``)
+
+    def get_assembled_map_for_visualization(self) -> dict:
+        """The assembled map, voxel-downsampled at
+        ``visualization.assembled_map_voxel_size``."""
+        from open3d_slam_torch.ops import voxel as voxel_ops
+        data = self.mapper.get_assembled_map_point_cloud()
+        vs = self.params.visualization.assembled_map_voxel_size
+        if vs > 0 and data["points"].shape[0] > 0:
+            pc = pclib.from_numpy(data["points"], device=self.device)
+            data = pclib.to_numpy(voxel_ops.voxel_downsample(pc, vs))
+        return data
+
+    def get_colored_submaps_for_visualization(self) -> dict:
+        """Every submap's map cloud, tinted by its id."""
+        from open3d_slam_torch.utils import colors
+        return colors.assemble_colored_submap_cloud(self.submaps.submaps)
+
+    def get_dense_map_cloud(self) -> dict:
+        """Every submap's dense voxel means, normals and colours,
+        concatenated."""
+        parts = [d for d in (_dense_cloud(s) for s in self.submaps.submaps)
+                 if d["points"].shape[0]]
+        if not parts:
+            return {"points": np.zeros((0, 3), np.float32)}
+        return {k: np.concatenate([d[k] for d in parts]) for k in parts[0]}
+
+
+def _dense_cloud(submap) -> dict:
+    """A submap's dense map as numpy arrays (no points when the
+    configuration builds none)."""
+    from open3d_slam_torch.ops import dense_map
+    if submap.dense_map is None:
+        return {"points": np.zeros((0, 3), np.float32)}
+    return pclib.to_numpy(dense_map.to_point_cloud(submap.dense_map))

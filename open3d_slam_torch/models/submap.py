@@ -1,12 +1,17 @@
 """Submap: one radius-bounded local map.
 
-Port of the main-path parts of ``open3d_slam_tpu.models.submap`` (reference
+Port of ``open3d_slam_tpu.models.submap`` (reference
 ``Submap.cpp:27-259``): the sparse ``map_cloud`` grown by scan insertion
 (carve every N scans, then re-merge by voxel inside the cropping volume),
-the rigid ``transform``, ``compute_submap_center`` and the
-place-recognition features (``compute_features``: a 0.5 m-voxel cloud, its
-normals through kernel K2, and FPFH).  The dense map arrives with a later
-slice of the port.
+the dense map (``insert_scan_dense_map``: the raw scan cropped, merged into
+a ``dense_map.VoxelizedPointCloud`` and carved every N scans), the rigid
+``transform``, ``compute_submap_center`` and the place-recognition features
+(``compute_features``: a 0.5 m-voxel cloud, its normals through kernel K2,
+and FPFH).
+
+The dense store is allocated when the submap is created, at
+``dense_capacity`` voxels, when the configuration builds a dense map
+(``mapper.is_build_dense_map``); otherwise the submap holds none.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from open3d_slam_torch.ops import carving, croppers, fpfh as fpfh_ops
+from open3d_slam_torch.ops import carving, croppers, dense_map, fpfh as fpfh_ops
 from open3d_slam_torch.ops import normals as normals_ops, sorted_store, voxel
 from open3d_slam_torch.utils import pointcloud as pclib, se3
 from open3d_slam_torch.utils.config import MapperParameters
@@ -32,8 +37,8 @@ def _ensure_normals(pc: PointCloud) -> PointCloud:
 
 class Submap:
     def __init__(self, submap_id: int, parent_id: int, params: MapperParameters,
-                 map_capacity: int = 262144, feature_capacity: int = 8192,
-                 device="cuda"):
+                 map_capacity: int = 262144, dense_capacity: int = 262144,
+                 feature_capacity: int = 8192, device="cuda"):
         self.id = submap_id
         self.parent_id = parent_id
         self.params = params
@@ -43,10 +48,19 @@ class Submap:
         self.map_cloud: PointCloud = pclib.empty(map_capacity, with_normals=True,
                                                  device=self.device)
         self.map_builder_cropper = croppers.from_cropper_params(params.map_builder.cropper)
+        self.dense_map: Optional[dense_map.VoxelizedPointCloud] = (
+            dense_map.empty(dense_capacity,
+                            max(params.dense_map_builder.map_voxel_size, 1e-3),
+                            device=self.device)
+            if params.is_build_dense_map else None)
+        self.dense_map_cropper = croppers.from_cropper_params(params.dense_map_builder.cropper)
+        # ColorRangeCropper on the dense map's input (Submap.cpp:80).
+        self.color_cropper = croppers.ColorRangeCropper()
         self.map_to_submap = np.eye(4)
         self.map_to_range_sensor = np.eye(4)
         self.submap_center: Optional[np.ndarray] = None
         self.n_scans_inserted_map = 0
+        self.n_scans_inserted_dense = 0
         self.creation_time: Optional[float] = None
         self.feature_cloud: Optional[PointCloud] = None
         self.fpfh: Optional[torch.Tensor] = None
@@ -90,6 +104,37 @@ class Submap:
         self.n_scans_inserted_map += 1
         return True
 
+    def insert_scan_dense_map(self, raw_scan: PointCloud,
+                              map_to_range_sensor: np.ndarray, timestamp: float,
+                              is_perform_carving: bool = True) -> bool:
+        """``Submap::insertScanDenseMap`` (``Submap.cpp:77-92``): crop the raw
+        scan (radius, then colour), merge it in the map frame, and every N
+        scans carve the voxels its rays pass through.  The cadence is the
+        host's counter and ``voxel_size`` a Python float, so nothing here
+        waits on the device."""
+        p = self.params
+        T = to_device(map_to_range_sensor, self.device)
+        cropped = self.color_cropper.crop(self.dense_map_cropper.crop(raw_scan))
+        self.dense_map = dense_map.insert(
+            self.dense_map, cropped.with_(points=se3.transform_points(T, cropped.points)))
+        cv = p.dense_map_builder.carving
+        carve_due = (is_perform_carving and self.n_scans_inserted_dense > 0 and
+                     self.n_scans_inserted_dense % cv.carve_space_every_n_scans == 1)
+        if carve_due:
+            voxel_size = self.dense_map.voxel_size
+            dedup = voxel.remove_duplicate_points_in_voxels(raw_scan, voxel_size)
+            scan_in_map = dedup.with_(points=se3.transform_points(T, dedup.points))
+            step = 2.0 * cv.neighborhood_radius_dense_map
+            max_steps = int(np.ceil(cv.max_raytracing_length / max(step, 1e-3))) + 1
+            keys, base = carving.carved_voxel_keys(
+                scan_in_map, T[:3, 3], voxel_size, cv.neighborhood_radius_dense_map,
+                cv.truncation_distance, cv.max_raytracing_length, max_steps=max_steps)
+            self.dense_map = dense_map.remove_keys(
+                self.dense_map, keys, base,
+                neighbor_deltas=carving.face_neighbor_deltas(self.device))
+        self.n_scans_inserted_dense += 1
+        return True
+
     def transform(self, T: np.ndarray):
         """Rigidly move the whole submap (``Submap.cpp:94-107``)."""
         Tj = to_device(T, self.device)
@@ -97,6 +142,8 @@ class Submap:
             points=se3.transform_points(Tj, self.map_cloud.points),
             normals=(None if self.map_cloud.normals is None
                      else se3.rotate_vectors(Tj, self.map_cloud.normals)))
+        if self.dense_map is not None:
+            self.dense_map = dense_map.transform(self.dense_map, Tj)
         if self.feature_cloud is not None:
             self.feature_cloud = self.feature_cloud.with_(
                 points=se3.transform_points(Tj, self.feature_cloud.points),

@@ -1,6 +1,6 @@
 """Space carving: free-space ray-march removal of stale map points.
 
-Port of the sparse-map carve of ``open3d_slam_tpu.ops.carving`` (reference
+Port of ``open3d_slam_tpu.ops.carving``.  The sparse-map carve (reference
 ``getIdxsOfCarvedPoints``, ``helpers.cpp:235-271``): every scan ray is
 sampled from the sensor in steps of the carve voxel size up to
 ``max(voxel, min(range - truncation, max_ray_len))``; map points in any
@@ -8,6 +8,11 @@ visited voxel are removed, gated by ``|dir . normal| > min_dot``.  All rays'
 samples form one (N_rays x N_steps) batch of exact packed keys, sorted once;
 map points test membership with a binary search.  Out-of-region map points
 get key -1 and are conservatively kept.
+
+The dense-map carve (``getKeysOfCarvedPoints``, ``helpers.cpp:347-377``)
+samples each ray in steps of twice the neighbourhood radius and hands the
+sorted keys to ``dense_map.remove_keys``, which expands them by
+``FACE_NEIGHBOR_DELTAS`` on the store's side.
 """
 from __future__ import annotations
 
@@ -17,9 +22,24 @@ import torch
 
 from open3d_slam_torch.ops.voxel import (EXACT_EXTENT, INT32_MAX, pack_coords,
                                          region_base_from_center, voxel_coords)
+from open3d_slam_torch.utils.device import to_device
 from open3d_slam_torch.utils.pointcloud import PointCloud
 
 _AXIS_MULT = (EXACT_EXTENT * EXACT_EXTENT, EXACT_EXTENT, 1)
+
+# Face-neighbourhood deltas in packed-key space: the packing is linear, so
+# key(c + o) == key(c) + delta(o) while both stay in the region.  The offsets
+# {0, +-e1, +-e2, +-e3} are symmetric under negation, so "a sample visits a
+# neighbour of voxel v" equals "v + offset is a visited voxel", and the test
+# runs on the store's side.
+FACE_NEIGHBOR_DELTAS = (0, _AXIS_MULT[0], -_AXIS_MULT[0], _AXIS_MULT[1],
+                        -_AXIS_MULT[1], 1, -1)
+
+
+def face_neighbor_deltas(device) -> torch.Tensor:
+    """``FACE_NEIGHBOR_DELTAS`` as an int32 tensor on ``device``, copied there
+    without a host sync."""
+    return to_device(FACE_NEIGHBOR_DELTAS, device, dtype=torch.int32)
 
 
 def _sensor_base(sensor_position: torch.Tensor, key_voxel_size) -> torch.Tensor:
@@ -79,3 +99,20 @@ def carve_mask(map_pc: PointCloud, scan_pc: PointCloud,
     else:
         gate = torch.ones_like(hit)
     return map_pc.mask & ~(hit & gate & map_pc.mask)
+
+
+def carved_voxel_keys(scan_pc: PointCloud, sensor_position: torch.Tensor,
+                      dense_voxel_size: float, neighborhood_radius: float,
+                      truncation_distance, max_ray_length,
+                      max_steps: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sorted exact keys of the dense-map voxels the scan's rays visit,
+    region base) (``helpers.cpp:347-377``), sampled every 2 x
+    ``neighborhood_radius``.  The consumer expands each key by its face
+    neighbourhood (``dense_map.remove_keys`` with ``FACE_NEIGHBOR_DELTAS``)
+    and must key its own voxels with the returned base."""
+    # Twice the float32 radius, as the JAX package steps.
+    step = 2.0 * float(torch.tensor(float(neighborhood_radius), dtype=torch.float32))
+    return _ray_visit_keys(scan_pc.points, scan_pc.mask, sensor_position,
+                           step_size=step, truncation_distance=truncation_distance,
+                           max_ray_length=max_ray_length,
+                           key_voxel_size=dense_voxel_size, max_steps=max_steps)

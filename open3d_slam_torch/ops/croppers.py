@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from open3d_slam_torch.utils.device import to_device
 from open3d_slam_torch.utils.pointcloud import PointCloud
 
 _BIG = 1e30
@@ -59,8 +60,10 @@ class ColorRangeCropper:
     rgb_max: tuple = (1.0, 1.0, 1.0)
 
     def is_valid_color(self, colors: torch.Tensor) -> torch.Tensor:
-        lo = torch.tensor(self.rgb_min, dtype=torch.float32, device=colors.device)
-        hi = torch.tensor(self.rgb_max, dtype=torch.float32, device=colors.device)
+        # to_device: a plain copy of a host list to the card would wait for
+        # the queued work.
+        lo = to_device(self.rgb_min, colors.device)
+        hi = to_device(self.rgb_max, colors.device)
         return torch.all((colors >= lo[None, :]) & (colors <= hi[None, :]), dim=-1)
 
     def crop(self, pc: PointCloud) -> PointCloud:

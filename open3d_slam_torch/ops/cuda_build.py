@@ -22,6 +22,7 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 from typing import Dict, List, Optional, Tuple
 
 from open3d_slam_torch.utils.device import nvcc_path
@@ -36,10 +37,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 launches: collections.Counter = collections.Counter()
+_launches_lock = threading.Lock()
 
 
 def count_launch(kernel: str, shape: Tuple[int, ...]):
-    launches[(kernel, tuple(shape))] += 1
+    # A lock: the async driver's worker thread launches too.
+    with _launches_lock:
+        launches[(kernel, tuple(shape))] += 1
 
 
 def launch_total(kernel: str, counts: Optional[Dict] = None) -> int:

@@ -99,6 +99,14 @@ def estimate_normals_at(queries: PointCloud, support: PointCloud, radius,
                                                  orientation_reference))
 
 
+def estimate_covariances(pc: PointCloud, radius, max_nn: int = 20,
+                         epsilon: float = 1e-3) -> torch.Tensor:
+    """Plane-regularised per-point GICP covariances (N, 3, 3) from normals
+    estimated on the kernel route (K2's prepass and moments on the card)."""
+    return covariances_from_normals(estimate_normals(pc, radius, max_nn=max_nn),
+                                    epsilon=epsilon)
+
+
 def covariances_from_normals(pc: PointCloud, epsilon: float = 1e-3) -> torch.Tensor:
     """Plane-regularised GICP covariances C = R diag(eps, 1, 1) R^T with R's
     first column the normal."""

@@ -1,7 +1,7 @@
-"""Voxel ops: packed voxel keys, the voxel merge engine, downsampling.
+"""Voxel ops: packed voxel keys, the voxel merge engine, downsampling,
+within-volume voxelization and duplicate removal.
 
-Port of the main-path subset of ``open3d_slam_tpu.ops.voxel``.  Semantics
-are the JAX package's:
+Port of ``open3d_slam_tpu.ops.voxel``.  Semantics are the JAX package's:
 
   * keys are collision-free int32 packings of floor(p / voxel) relative to a
     region base (``EXACT_EXTENT``^3 < 2^31); ``OUT_OF_REGION`` rows are
@@ -191,3 +191,41 @@ def random_downsample(pc: PointCloud, num_samples: int,
     rank = torch.empty_like(order)
     rank[order] = torch.arange(n, dtype=order.dtype, device=order.device)
     return pc.with_(mask=pc.mask & (rank < num_samples))
+
+
+def remove_duplicate_points_in_voxels(pc: PointCloud, voxel_size: float) -> PointCloud:
+    """Keep only the first point (in scan order) per voxel, mask only
+    (``VoxelMap::removeDuplicatePointsWithinSameVoxels``, ``Voxel.cpp:162-191``).
+    A stable sort of the keys finds each voxel's first row; the keep flags go
+    back to scan order through the sort's permutation."""
+    keys, _ = span_keys(pc.points, pc.mask, voxel_size)
+    ks, perm = torch.sort(keys, stable=True)
+    vs_row = ks != INT32_MAX
+    starts = ((ks != torch.roll(ks, 1)) | (ks == OUT_OF_REGION)) & vs_row
+    starts[0] = vs_row[0]
+    keep = torch.empty_like(starts)
+    keep[perm] = starts
+    return pc.with_(mask=pc.mask & keep)
+
+
+def voxelize_within_cropping_volume(pc: PointCloud, voxel_size: float,
+                                    inside: torch.Tensor,
+                                    out_capacity: Optional[int] = None) -> PointCloud:
+    """Voxel means of the points where ``inside`` holds; the other valid
+    points pass through verbatim as singleton segments
+    (``voxelizeWithinCroppingVolume``, ``helpers.cpp:115-183``).  A
+    ``voxel_size`` <= 0 returns the input unchanged, as the reference does."""
+    out_capacity = out_capacity or pc.capacity
+    if voxel_size <= 0:
+        return pc
+    inside = inside & pc.mask
+    keys, base = span_keys(pc.points, inside, voxel_size)
+    keys = torch.where(pc.mask & ~inside, torch.full_like(keys, OUT_OF_REGION), keys)
+    return merge_clouds_by_voxel(keys, pc.points, pc.normals, pc.colors,
+                                 voxel_size, base, out_capacity,
+                                 exact_passthrough=True)
+
+
+def voxel_centers(coords: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """Centre positions of voxels given their integer coords."""
+    return (coords.to(torch.float32) + 0.5) * voxel_size

@@ -93,6 +93,17 @@ def empty(capacity: int, with_normals: bool = False, with_colors: bool = False,
                       colors=z if with_colors else None)
 
 
+def compact(pc: PointCloud) -> PointCloud:
+    """Valid points moved to the front, in stable order; same capacity."""
+    order = torch.argsort((~pc.mask).to(torch.int32), stable=True)
+
+    def take(a):
+        return None if a is None else a[order]
+
+    return PointCloud(points=take(pc.points), mask=pc.mask[order],
+                      normals=take(pc.normals), colors=take(pc.colors))
+
+
 def padded_capacity(n: int, multiple: int = 256) -> int:
     """Smallest multiple of ``multiple`` >= n."""
     return max(multiple, ((n + multiple - 1) // multiple) * multiple)
@@ -121,3 +132,19 @@ def compact_to(pc: PointCloud, out_capacity: int) -> PointCloud:
 
     return PointCloud(points=take(pc.points), mask=mask,
                       normals=take(pc.normals), colors=take(pc.colors))
+
+
+def concat(a: PointCloud, b: PointCloud, capacity: int) -> PointCloud:
+    """Valid points of ``a``, then those of ``b``, in a new cloud of
+    ``capacity`` (overflow keeps a uniform stride, as ``compact_to``).  A
+    channel one side lacks is zero there."""
+    def cat(x, y):
+        if x is None and y is None:
+            return None
+        x = torch.zeros_like(a.points) if x is None else x
+        y = torch.zeros_like(b.points) if y is None else y
+        return torch.cat([x, y], dim=0)
+
+    big = PointCloud(points=cat(a.points, b.points), mask=torch.cat([a.mask, b.mask]),
+                     normals=cat(a.normals, b.normals), colors=cat(a.colors, b.colors))
+    return compact_to(big, capacity)

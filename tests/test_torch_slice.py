@@ -1,6 +1,6 @@
 """Port vs JAX over the whole slice: LidarOdometry and a short SlamWrapper
 replay on simulated VLP-16 scans, pipelined vs sequential replay, the
-interop round trip, the refusal of features that later slices port, the
+interop round trip, the flags the first slice refused (all accepted now), the
 mapping CLI, and the rule that the port imports nothing of JAX.
 
 The JAX package runs on its kernel path (``torch_parity.jax_kernel_path``)
@@ -157,18 +157,22 @@ def test_interop_round_trips(rng):
 
 @pytest.mark.parametrize("flag", ["is_attempt_loop_closures", "is_build_dense_map",
                                   "is_undistort_input_cloud"])
-def test_wrapper_refuses_later_slices(flag):
-    """The flags the first slice refused.  The dense map is still refused.
-    Loop closures and undistortion are ported now and accepted, and along
-    the closure path so is the ICP refinement of odometry constraints
-    (point-to-plane ICP, kernel K4; it runs in
+def test_wrapper_refuses_later_slices(flag, scans):
+    """The flags the first slice refused are all ported now and accepted:
+    loop closures, undistortion, and the dense map (which runs a scan here,
+    into the active submap's dense store).  Along the closure path so is the
+    ICP refinement of odometry constraints (point-to-plane ICP, kernel K4;
+    it runs in
     ``test_torch_pose_graph.py::test_refined_odometry_constraints_are_refused``)."""
     tp = to_torch_params(small_jax_params())
     owner = tp.motion_compensation if flag == "is_undistort_input_cloud" else tp.mapper
     setattr(owner, flag, True)
     if flag == "is_build_dense_map":
-        with pytest.raises(NotImplementedError, match="later|slice"):
-            SlamWrapper(tp, device="cpu")
+        tp.capacities.raw_scan = 8192
+        tp.capacities.dense_submap_voxels = 16384
+        slam = SlamWrapper(tp, device="cpu")
+        assert slam.process_scan(scans[0][0], scans[1][0])
+        assert int(slam.submaps.get_active_submap().dense_map.num_voxels()) > 0
         return
     assert getattr(owner, flag) and SlamWrapper(tp, device="cpu").params is tp
     if flag == "is_attempt_loop_closures":
