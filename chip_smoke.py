@@ -46,6 +46,15 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      localized within 0.5 m and 5 degrees;
   8. replays the first scans of step 3 with point-to-plane ICP for both
      registrations (the ``SlamParameters`` default) and checks the ATE;
+  8a. the scale-out layer (``parallel/``) in a 1-rank NCCL group (the card
+     is one H100, and NCCL refuses two ranks on one device): the JAX
+     package's ``bench_batched_icp`` batch (128 scan pairs, 1024-point
+     sources on 2048-point targets, a target per element) sharded over the
+     data axis, easy and hard, its registrations/s and its results against
+     the unsharded call; block-sharded point-to-plane and GICP at the
+     scan-to-map shapes (16384 x 65536) against the calls without a group;
+     the pose-graph refinement stage; and ``batch_map_sequences`` against
+     each sequence's own replay (the checks run after the counts are read);
   9. holds each kernel against its plain PyTorch version on the card, on the
      inputs the runs last gave it at each of its shapes, and times both
      next to the least time the card could take (the bound); for K1 and K4
@@ -57,7 +66,7 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
-Steps 5a, 5b and 6 to 8 each set every launch count to 0 just before and
+Steps 5a, 5b, 6 to 8 and 8a each set every launch count to 0 just before and
 read it just after, and fail if a kernel of their path did not run.
 
 It exits non-zero, and prints no result line, on any failure, without a
@@ -95,6 +104,15 @@ GLOBAL_MAP, GLOBAL_SCAN = 32768, 8192
 GLOBAL_SEEDS = (101, 102, 103, 104, 105)   # seed 100 warms up
 GLOBAL_TOL_M, GLOBAL_TOL_DEG = 0.5, 5.0
 P2L_SCANS = 100
+# Step 8a: bench.py's bench_batched_icp (batch, source, target points,
+# voxel, correspondence distance, iterations easy / hard) and the
+# scan-to-map shapes of __graft_entry__.py's stage 5.
+PAR_BATCH, PAR_SRC, PAR_TGT = 128, 1024, 2048
+PAR_VOXEL, PAR_CORR = 0.3, 0.5
+PAR_ITERS = {"easy": 15, "hard": 30}
+PAR_REPEATS = 3
+BLOCK_SCAN, BLOCK_MAP, BLOCK_VALID = 16384, 65536, 40000
+BLOCK_ITERS = 10
 
 
 def fail(msg: str):
@@ -126,8 +144,8 @@ def time_ms(fn, reps: int) -> float:
 
 def launch_us(fn, reps: int = 5) -> dict:
     """Device microseconds per call of each CUDA kernel that ``fn``
-    launches, by kernel name, from ``torch.profiler`` over ``reps`` calls
-    after one warm-up call."""
+    launches, by kernel name (without its namespaces and arguments), from
+    ``torch.profiler`` over ``reps`` calls after one warm-up call."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -141,8 +159,12 @@ def launch_us(fn, reps: int = 5) -> dict:
     def name(key):     # "nn::(anonymous namespace)::nn_sweep(...)" -> "nn_sweep"
         return re.sub(r"\(anonymous namespace\)::", "", key).split("(")[0].split("::")[-1]
 
-    return {name(e.key): round(e.self_device_time_total / reps, 2)
-            for e in prof.key_averages() if e.device_type == cuda}
+    out = {}
+    for e in prof.key_averages():     # kernels whose short names match add up
+        if e.device_type == cuda:
+            out[name(e.key)] = round(out.get(name(e.key), 0.0)
+                                     + e.self_device_time_total / reps, 2)
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -683,6 +705,203 @@ def async_replay(params, scans, seq_poses, cuda_build, AsyncSlamDriver, SlamWrap
     return len(poses) == N_DETERMINISM and dev <= 1e-6 and not missing, counts
 
 
+def bench_batch(datasets, pclib, voxel, normals_ops, hashgrid):
+    """bench.py's ``bench_batched_icp`` inputs on the card: 128 scans of a
+    SyntheticWorld (extent 30 m; 60000/40000/30000 ground/wall/pillar
+    points) from a radius-15 m circle, targets voxelized at 0.3 m with
+    normals (r 1 m, k 10) in 0.5 m grids, sources 1024 of each scan's points
+    moved by (0.15, -0.1, 0.02) m; easy inits the identity, hard ones
+    +-0.5 m and +-10 degrees.  Returns (sources, grids, {name: inits})."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    world = datasets.SyntheticWorld(datasets.SyntheticWorldConfig(
+        extent=30.0, n_ground=60000, n_walls=40000, n_pillars=30000))
+    poses = datasets.circle_trajectory(PAR_BATCH, radius=15.0)
+    srcs = np.zeros((PAR_BATCH, PAR_SRC, 3), np.float32)
+    tgts = np.zeros((PAR_BATCH, PAR_TGT, 3), np.float32)
+    for b, T in enumerate(poses):
+        scan = world.render_scan(T, max_range=25.0, n_points=PAR_TGT)
+        tgts[b] = scan[:PAR_TGT]
+        srcs[b] = scan[rng.choice(PAR_TGT, PAR_SRC, replace=False)] + np.array(
+            [0.15, -0.1, 0.02], np.float32)
+    dev = torch.device("cuda")
+    prepped = [normals_ops.estimate_normals(voxel.voxel_downsample(
+        pclib.from_numpy(t, capacity=PAR_TGT, device=dev), PAR_VOXEL), 1.0, max_nn=10)
+        for t in tgts]
+    grids = hashgrid.build_batched(pclib.PointCloud(
+        points=torch.stack([p.points for p in prepped]),
+        mask=torch.stack([p.mask for p in prepped]),
+        normals=torch.stack([p.normals for p in prepped])), PAR_CORR)
+    sources = pclib.PointCloud(points=torch.from_numpy(srcs).to(dev),
+                               mask=torch.ones((PAR_BATCH, PAR_SRC), dtype=torch.bool,
+                                               device=dev))
+    hard = np.tile(np.eye(4, dtype=np.float32), (PAR_BATCH, 1, 1))
+    axes = rng.normal(size=(PAR_BATCH, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    angs = rng.uniform(-np.deg2rad(10.0), np.deg2rad(10.0), PAR_BATCH)
+    for b in range(PAR_BATCH):
+        K = np.array([[0, -axes[b, 2], axes[b, 1]], [axes[b, 2], 0, -axes[b, 0]],
+                      [-axes[b, 1], axes[b, 0], 0]])
+        hard[b, :3, :3] = np.eye(3) + np.sin(angs[b]) * K + (1 - np.cos(angs[b])) * (K @ K)
+        hard[b, :3, 3] = rng.uniform(-0.5, 0.5, 3)
+    inits = {"easy": torch.eye(4, device=dev).repeat(PAR_BATCH, 1, 1),
+             "hard": torch.from_numpy(hard).to(dev)}
+    return sources, grids, inits
+
+
+def same_result(a, b) -> bool:
+    """Two ``RegistrationResult``s bit-equal in every field."""
+    import torch
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in
+               ("transformation", "fitness", "inlier_rmse", "num_iterations"))
+
+
+def scale_out(cuda_build, name_power, datasets, pclib, recorders):
+    """Step 8a: the scale-out layer in a 1-rank NCCL group.  The launch
+    counts are set to 0 just before the sharded path's runs (its inputs'
+    preparation included) and read just after them; the recorders are then
+    removed, and the checks (the unsharded calls, the batch's first half
+    alone, the profiler's runs, each sequence's own replay) run after, so
+    they add to no count and record no inputs.  Returns (ok, the counts)."""
+    import statistics
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from open3d_slam_torch.models.slam_wrapper import SlamWrapper
+    from open3d_slam_torch.ops import hashgrid, normals as normals_ops, voxel
+    from open3d_slam_torch.ops import registration as reg_ops
+    from open3d_slam_torch.parallel import mesh as mesh_lib, multihost, sharded_icp
+
+    t_step = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, device="cuda",
+                         timeout_s=300.0)
+    ok = dist.get_backend() == "nccl"
+    mesh = multihost.global_mesh(1)
+    print(f"step 8a: {dist.get_backend()} group of {dist.get_world_size()} on "
+          f"{mesh_lib.collective_device()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}",
+          flush=True)
+
+    # The sharded path, counted.
+    cuda_build.launches.clear()
+    # The data-sharded batch at bench_batched_icp's width.
+    t0 = time.perf_counter()
+    sources, grids, inits = bench_batch(datasets, pclib, voxel, normals_ops, hashgrid)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    runs, results, ms = {}, {}, {}
+    for name, iters in PAR_ITERS.items():
+        runs[name] = (lambda name=name, iters=iters: sharded_icp.batched_icp_p2l(
+            sources, grids, inits[name], PAR_CORR, max_iterations=iters, mesh=mesh))
+        results[name] = runs[name]()
+        ms[name] = []
+        for _ in range(PAR_REPEATS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            results[name] = runs[name]()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    # Block-sharded point-to-plane and GICP at the scan-to-map shapes.
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(55)
+    base = rng.uniform(-30, 30, size=(BLOCK_VALID, 3)).astype(np.float32)
+    base[:, 2] = np.abs(base[:, 2]) * 0.1
+    src = base[rng.choice(BLOCK_VALID, BLOCK_SCAN, replace=False)] + np.array(
+        [0.2, -0.1, 0.0], np.float32)
+    map_pc = normals_ops.estimate_normals(
+        pclib.from_numpy(base, capacity=BLOCK_MAP, device=dev), 1.2, max_nn=10)
+    grid = hashgrid.build(map_pc, 1.0)
+    scan = normals_ops.estimate_normals(pclib.from_numpy(src, capacity=BLOCK_SCAN, device=dev),
+                                        1.2, max_nn=10)
+    eye = torch.eye(4, device=dev)
+    n_block = mesh.size(1)
+    block_p2l = sharded_icp.make_block_sharded_icp(mesh, 1.0, max_iterations=BLOCK_ITERS)(
+        sharded_icp.split_points_for_blocks(scan, n_block), grid, eye)
+    covs = normals_ops.covariances_from_normals(map_pc)[grid.order.long()]
+    scan_covs = normals_ops.covariances_from_normals(scan)
+    block_gicp = sharded_icp.make_block_sharded_gicp(mesh, 1.0, max_iterations=BLOCK_ITERS)(
+        sharded_icp.split_points_for_blocks(scan, n_block),
+        sharded_icp.split_points_for_blocks(scan_covs, n_block), grid, covs, eye)
+    # The pose-graph and batch-map stages.
+    err = multihost.pose_graph_refinement_stage(mesh)
+    summary = multihost.batch_map_stage()
+    seqs, params = multihost.batch_map_inputs(2, 6, refine_every_scan=True)
+    trajs = multihost.batch_map_sequences(seqs, params)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    path_s = time.perf_counter() - t_step
+    for rec in recorders:
+        rec.remove()
+
+    # The checks, uncounted.
+    print(f"batched p2l inputs: {PAR_BATCH} pairs of {PAR_SRC} x {PAR_TGT} points, "
+          f"{int(grids.hashes_sorted.ne(hashgrid.INT32_MAX).sum())} valid targets after the "
+          f"{PAR_VOXEL} m voxels, prepared in {prep_s:.2f} s", flush=True)
+    for name, iters in PAR_ITERS.items():
+        res = results[name]
+        want = reg_ops.batched_icp_point_to_plane(sources, grids, inits[name], PAR_CORR,
+                                                  max_iterations=iters)
+        equal = same_result(res, want)
+        # The first half alone, as rank 0 of a (2, 1) mesh runs it: the
+        # sweep's split count (nn_layout.plan_splits) depends on the batch.
+        half = PAR_BATCH // 2
+        alone = reg_ops.batched_icp_point_to_plane(
+            *mesh_lib.map_tensors(lambda x: x[:half], (sources, grids, inits[name])),
+            PAR_CORR, max_iterations=iters)
+        half_equal = same_result(alone, res[:half])
+        p50 = statistics.median(ms[name])
+        # Device time of one run, by kernel (torch.profiler): the rest of
+        # the batch's wall time the card idles.
+        busy = launch_us(runs[name], reps=1)
+        busy_ms = sum(busy.values()) / 1e3
+        top = dict(sorted(busy.items(), key=lambda kv: -kv[1])[:4])
+        print(f"data-sharded batched p2l {name} ({iters} iterations): "
+              f"{PAR_BATCH / (p50 / 1e3):.1f} registrations/s (median of {PAR_REPEATS}: "
+              f"{p50:.3f} ms a batch; runs {[round(x, 3) for x in ms[name]]}), mean fitness "
+              f"{float(res.fitness.mean()):.4f}, mean iterations "
+              f"{float(res.num_iterations.float().mean()):.2f}; bit-equal to the "
+              f"unsharded call {equal}, its first {half} alone bit-equal to theirs in the "
+              f"batch {half_equal}; device busy {busy_ms:.3f} ms of the batch (idle share "
+              f"{1.0 - busy_ms / p50:.4f}), top kernels (us) {json.dumps(top)}; {name_power}",
+              flush=True)
+        ok = ok and equal and half_equal and float(res.fitness.mean()) > 0.5
+    equal = same_result(block_p2l, reg_ops.icp_point_to_plane(
+        scan, grid, eye, 1.0, max_iterations=BLOCK_ITERS))
+    print(f"block-sharded p2l {BLOCK_SCAN} x {BLOCK_MAP} over {n_block} block: fitness "
+          f"{float(block_p2l.fitness):.4f}, {int(block_p2l.num_iterations)} iterations, "
+          f"bit-equal to icp_point_to_plane on the whole scan {equal}", flush=True)
+    ok = ok and equal
+    equal = same_result(block_gicp, reg_ops.icp_generalized(
+        scan, scan_covs, grid, covs, eye, 1.0, max_iterations=BLOCK_ITERS))
+    print(f"block-sharded GICP {BLOCK_SCAN} x {BLOCK_MAP} over {n_block} block: fitness "
+          f"{float(block_gicp.fitness):.4f}, {int(block_gicp.num_iterations)} iterations, "
+          f"bit-equal to icp_generalized on the whole scan {equal}", flush=True)
+    ok = ok and equal
+    own = []
+    for seq in seqs:
+        slam = SlamWrapper(params, device="cuda")
+        for points, ts in zip(seq.scans, seq.timestamps):
+            slam.process_scan(points, ts)
+        own.append(np.stack(slam.get_trajectory()[1]))
+    equal = all(np.array_equal(t[:len(o)], o) and not t[len(o):].any()
+                for t, o in zip(trajs, own))
+    dist.destroy_process_group()
+    print(f"pose-graph refinement: endpoint error {err:.5f} m (limit 0.05); batch map "
+          f"{json.dumps(summary)}; batch_map_sequences with every scan refined: poses "
+          f"{[len(o) for o in own]}, equal to each sequence's own replay {equal}; the "
+          f"sharded path {path_s:.1f} s, step 8a {time.perf_counter() - t_step:.1f} s; "
+          f"launches {json.dumps(shape_counts(counts))}", flush=True)
+    ok = (ok and err < 0.05 and equal and summary["n_nonzero"] == summary["n_sequences"]
+          and summary["max_start_err"] < 1e-3 and min(len(o) for o in own) > 1)
+    missing = missing_kernels(cuda_build, counts, ("p2l_normal_eq", "gicp_normal_eq",
+                                                   "kth_neighbor_d2_within",
+                                                   "radius_moments_at"))
+    if missing or not ok:
+        print(f"step 8a failed a check, or never launched {missing}", file=sys.stderr)
+    return ok and not missing, counts
+
+
 def shape_counts(counts):
     return {f"{k}{list(s)}": c for (k, s), c in sorted(counts.items())}
 
@@ -1011,16 +1230,19 @@ def main() -> int:
     if missing:
         print(f"point-to-plane tracking never launched {missing}", file=sys.stderr)
         ok = False
-    for rec in recorders:
-        rec.remove()
-    phases = (full_key, by_key, dense_key, async_key, cli_key, global_key, p2l_key)
+
+    # 8a. The scale-out layer in a 1-rank NCCL group.
+    # It removes the recorders once its path has run.
+    good, par_key = scale_out(cuda_build, name_power, datasets, pclib, recorders)
+    ok = ok and good
+    phases = (full_key, by_key, dense_key, async_key, cli_key, global_key, p2l_key, par_key)
     if set().union(*phases) != {key for rec in recorders for key in rec.inputs}:
         print("a launch key has no recorded inputs", file=sys.stderr)
         ok = False
 
     # 9. Each kernel against its plain version, at each of its shapes.  The
     # launches of a shape are those of the full replay, else the
-    # closures-off replay's, else those of steps 6 to 8 together.
+    # closures-off replay's, else those of steps 6 to 8a together.
     entries = []
     for rec, entry_fn, mod in ((recorders[0], gicp_entry, cuda_gicp),
                                (recorders[1], kth_entry, cuda_normals),
@@ -1030,7 +1252,7 @@ def main() -> int:
         for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
             key = (name, shape)
             n_launch = full_key.get(key, by_key.get(key, sum(
-                c.get(key, 0) for c in (cli_key, global_key, p2l_key))))
+                c.get(key, 0) for c in (cli_key, global_key, p2l_key, par_key))))
             good, entry = entry_fn(mod, shape, n_launch, args, kwargs)
             ok = ok and good
             entries.append(entry)

@@ -1,18 +1,20 @@
 """Host-side buffers: pose interpolation buffer and bounded queues.
 
 Port of ``open3d_slam_tpu.models.buffers``.  Mirrors the reference's ``TransformInterpolationBuffer``
-(``src/TransformInterpolationBuffer.cpp:21-157``) and ``CircularBuffer``
-(``CircularBuffer.hpp:13-67``).  The pose buffers are read and written by
+(``src/TransformInterpolationBuffer.cpp:21-157``), ``CircularBuffer``
+(``CircularBuffer.hpp:13-67``) and ``ThreadSafeBuffer``
+(``ThreadSafeBuffer.hpp:15-50``).  The pose buffers are read and written by
 the pipeline's one thread.  ``CircularBuffer`` takes a lock: the async
 driver (``models/async_driver.py``) pushes scans from the caller's thread
-while its worker pops them.
+while its worker pops them; ``ThreadSafeBuffer`` is locked as the
+reference's is.
 """
 from __future__ import annotations
 
 import bisect
 import threading
 from collections import deque
-from typing import Deque, Generic, List, Optional, TypeVar
+from typing import Callable, Deque, Generic, List, Optional, TypeVar
 
 import numpy as np
 
@@ -50,6 +52,12 @@ class TransformInterpolationBuffer:
 
     def empty(self) -> bool:
         return not self._times
+
+    def earliest_time(self) -> float:
+        return self._times[0]
+
+    def latest_time(self) -> float:
+        return self._times[-1]
 
     def latest_measurement(self, n_before_last: int = 0) -> TimestampedTransform:
         return TimestampedTransform(self._times[-1 - n_before_last],
@@ -102,6 +110,18 @@ class TransformInterpolationBuffer:
             return self._transforms[-1].copy()
         return self.lookup(time)
 
+    def apply_to_all_in_interval(self, t_begin: float, t_end: float,
+                                 fn: Callable[[np.ndarray], np.ndarray]):
+        """Rewrite the poses in [t_begin, t_end] (loop-closure trajectory
+        update, ``applyToAllElementsInTimeInterval``, cpp:45-52)."""
+        for i, t in enumerate(self._times):
+            if t_begin <= t <= t_end:
+                self._transforms[i] = np.asarray(fn(self._transforms[i]))
+
+    def apply_to_all(self, fn: Callable[[np.ndarray], np.ndarray]):
+        for i in range(len(self._transforms)):
+            self._transforms[i] = np.asarray(fn(self._transforms[i]))
+
 
 class CircularBuffer(Generic[T]):
     """Bounded deque, drop-oldest (``CircularBuffer.hpp``)."""
@@ -121,6 +141,10 @@ class CircularBuffer(Generic[T]):
         with self._lock:
             return self._dq.popleft() if self._dq else None
 
+    def peek_front(self) -> Optional[T]:
+        with self._lock:
+            return self._dq[0] if self._dq else None
+
     def peek_back(self) -> Optional[T]:
         with self._lock:
             return self._dq[-1] if self._dq else None
@@ -132,3 +156,28 @@ class CircularBuffer(Generic[T]):
     def full(self) -> bool:
         with self._lock:
             return len(self._dq) >= self.size_limit
+
+    def clear(self):
+        with self._lock:
+            self._dq.clear()
+
+
+class ThreadSafeBuffer(Generic[T]):
+    """Mutex-guarded list with pop-all (``ThreadSafeBuffer.hpp``)."""
+
+    def __init__(self):
+        self._items: List[T] = []
+        self._lock = threading.Lock()
+
+    def push(self, item: T):
+        with self._lock:
+            self._items.append(item)
+
+    def pop_all(self) -> List[T]:
+        with self._lock:
+            out, self._items = self._items, []
+            return out
+
+    def __len__(self):
+        with self._lock:
+            return len(self._items)

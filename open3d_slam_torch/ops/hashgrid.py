@@ -1,7 +1,8 @@
 """Spatial hash grid and brute-force neighbour queries.
 
 Port of ``open3d_slam_tpu.ops.hashgrid`` on its kernel path: ``build`` (hash
-sort), ``query_nearest`` with the caller semantics of the JAX package's
+sort) and ``build_batched`` (one grid per batch element, ``jax.vmap(build)``),
+``query_nearest`` with the caller semantics of the JAX package's
 ``_query_nearest_pallas`` (nearest valid point through kernel K3, then the
 winner's exact d2, the distance gate and validity; on the card K3 takes the
 gate and skips exactly what cannot pass it), ``nearest_layout`` (K3's target
@@ -50,6 +51,23 @@ def build(pc: PointCloud, cell_size: float) -> HashGrid:
     return HashGrid(hashes_sorted=h[order], points_sorted=pc.points[order],
                     normals_sorted=None if pc.normals is None else pc.normals[order],
                     order=order.to(torch.int32), cell_size=float(cell_size))
+
+
+def build_batched(pc: PointCloud, cell_size: float) -> HashGrid:
+    """One grid per element of a batched cloud (points (B, N, 3), mask
+    (B, N)), stacked on a leading axis: ``build`` of each element, as
+    ``jax.vmap(hashgrid.build)`` gives it."""
+    grids = [build(PointCloud(points=pc.points[b], mask=pc.mask[b],
+                              normals=None if pc.normals is None else pc.normals[b]),
+                   cell_size) for b in range(pc.points.shape[0])]
+
+    def stack(name):
+        return (None if getattr(grids[0], name) is None
+                else torch.stack([getattr(g, name) for g in grids]))
+
+    return HashGrid(hashes_sorted=stack("hashes_sorted"), points_sorted=stack("points_sorted"),
+                    normals_sorted=stack("normals_sorted"), order=stack("order"),
+                    cell_size=float(cell_size))
 
 
 def nearest_layout(grid: HashGrid, target: Optional[nn_layout.TargetLayout] = None

@@ -13,6 +13,13 @@ elements.  The port takes the fused route on every device (the JAX package's
 unfused hash-grid branch, its CPU path, is not ported); point-to-point ICP
 finds its correspondences through ``hashgrid.query_nearest`` (K3).
 
+With a ``group`` (a ``torch.distributed`` process group), the source is one
+point shard of a cloud split over the group's ranks: the fused loops sum the
+kernel's (B, 8, 128) output over the group on every iteration before reading
+it, in rank order (``utils.collectives.gather_sum``, the JAX package's
+``psum`` over ``axis_name``), so every rank takes the same steps and stops at
+the same iteration.
+
 ``lax.while_loop`` never returns to the host; a Python loop that reads a
 device flag does, once per read.  Converged elements freeze (T kept, the
 iteration count not advanced), so a few extra iterations after every element
@@ -30,7 +37,7 @@ import torch
 
 from open3d_slam_torch.ops import cuda_gicp, cuda_icp, hashgrid, nn_layout
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
-from open3d_slam_torch.utils import se3
+from open3d_slam_torch.utils import collectives, se3
 from open3d_slam_torch.utils.device import pull_bool, to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
 
@@ -144,7 +151,11 @@ def _gauss_newton(stats_eq: Callable, inits: torch.Tensor, max_iterations: int,
                               num_iterations=it)
 
 
-def _stats(out: torch.Tensor, n_src: torch.Tensor):
+def _stats(out: torch.Tensor, n_src: torch.Tensor, group=None):
+    """(JtJ, Jtr, fitness, rmse) of a fused kernel's output, summed over
+    ``group`` first when there is one."""
+    if group is not None:
+        out = collectives.gather_sum(out, group)
     JtJ, Jtr, n_in, d2s = cuda_gicp.unpack(out)
     fit = n_in / torch.clamp(n_src, min=1.0)
     rmse = torch.sqrt(d2s / torch.clamp(n_in, min=1.0))
@@ -164,18 +175,20 @@ def _r2(max_dist, device) -> torch.Tensor:
 
 def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
                           max_iterations, relative_fitness, relative_rmse,
-                          layout=None) -> RegistrationResult:
+                          layout=None, group=None) -> RegistrationResult:
     """Batched GICP GN loop around ``cuda_gicp.gicp_normal_eq``.  Source
     covariances are rotated outside the kernel (R C R^T), the NN search and
     the Mahalanobis normal equations inside; the exp retraction.  ``layout``
-    (``nn_layout.SweepLayout``) holds for every iteration."""
+    (``nn_layout.SweepLayout``) holds for every iteration.  With ``group``
+    the points are this rank's shard and ``n_src`` the valid points of the
+    whole cloud."""
     r2 = _r2(max_dist, points.device)
 
     def stats_eq(T):
         pts = se3.transform_points(T, points).contiguous()
         qc = cuda_gicp.rotate_cov6(T[..., :3, :3], qcov6).contiguous()
         return _stats(cuda_gicp.gicp_normal_eq(pts, maskf, qc, td, tv, r2, None, layout),
-                      n_src)
+                      n_src, group)
 
     return _gauss_newton(stats_eq, inits, max_iterations, relative_fitness,
                          relative_rmse, se3.se3_exp)
@@ -183,18 +196,21 @@ def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
 
 def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dist,
                          max_iterations, relative_fitness, relative_rmse,
-                         use_exp_retraction=False, layout=None) -> RegistrationResult:
+                         use_exp_retraction=False, layout=None,
+                         group=None) -> RegistrationResult:
     """Batched point-to-plane GN loop around ``cuda_icp.p2l_normal_eq``:
     one kernel call per iteration gives the correspondences, the 6x6 normal
     equations and the fitness statistics of the whole batch.  The Euler-XYZ
     retraction unless ``use_exp_retraction``.  ``layout``
-    (``nn_layout.SweepLayout``) holds for every iteration."""
+    (``nn_layout.SweepLayout``) holds for every iteration.  With ``group``
+    the points are this rank's shard and ``n_src`` the valid points of the
+    whole cloud."""
     r2 = _r2(max_dist, inits.device)
 
     def stats_eq(T):
         pts = se3.transform_points(T, points).contiguous()
         return _stats(cuda_icp.p2l_normal_eq(pts, maskf, t_t, tn_t, tc, tv, r2, layout),
-                      n_src)
+                      n_src, group)
 
     return _gauss_newton(stats_eq, inits, max_iterations, relative_fitness,
                          relative_rmse,
@@ -217,8 +233,8 @@ def batched_icp_point_to_plane(source: PointCloud, target_grid: HashGrid,
                                relative_rmse: float = 1e-6,
                                use_exp_retraction: bool = False,
                                prepared: Optional[tuple] = None,
-                               source_order: Optional[torch.Tensor] = None
-                               ) -> RegistrationResult:
+                               source_order: Optional[torch.Tensor] = None,
+                               group=None) -> RegistrationResult:
     """Natively batched fused point-to-plane ICP (kernel K4).  Two layouts,
     told apart by rank:
 
@@ -232,17 +248,20 @@ def batched_icp_point_to_plane(source: PointCloud, target_grid: HashGrid,
     sweep layout are made once here, unless given: ``prepared``, what
     ``cuda_icp.prepare_target`` returned for the grid (the grid is then not
     read), and ``source_order``, the Morton order of the untransformed
-    source."""
+    source.  With ``group``, ``source`` is this rank's point shard of the
+    cloud the group's ranks split between them (``icp_point_to_plane``)."""
     if prepared is None:
         prepared = point_to_plane_target(target_grid)
     t_t, tn_t, tc, tv, t_layout = prepared
     layout = nn_layout.SweepLayout(t_layout, _source_order(source, source_order))
     maskf = source.mask.to(torch.float32)[..., None].contiguous()
     n_src = source.mask.to(torch.float32).sum(-1)
+    if group is not None:
+        n_src = collectives.gather_sum(n_src, group)
     return _icp_p2l_fused_batch(
         source.points, maskf, n_src, t_t, tn_t, tc, tv,
         inits.to(torch.float32), max_correspondence_distance, max_iterations,
-        relative_fitness, relative_rmse, use_exp_retraction, layout)
+        relative_fitness, relative_rmse, use_exp_retraction, layout, group)
 
 
 def icp_point_to_plane(source: PointCloud, target_grid: HashGrid, init: torch.Tensor,
@@ -250,14 +269,21 @@ def icp_point_to_plane(source: PointCloud, target_grid: HashGrid, init: torch.Te
                        relative_fitness: float = 1e-6, relative_rmse: float = 1e-6,
                        use_exp_retraction: bool = False,
                        prepared: Optional[tuple] = None,
-                       source_order: Optional[torch.Tensor] = None) -> RegistrationResult:
+                       source_order: Optional[torch.Tensor] = None,
+                       group=None) -> RegistrationResult:
     """Point-to-plane ICP of ``source`` against a target grid with normals,
     as Open3D ``RegistrationICP`` with ``TransformationEstimationPointToPlane``
-    (``CloudRegistration.cpp:44-48``), through kernel K4."""
+    (``CloudRegistration.cpp:44-48``), through kernel K4.
+
+    ``group``: ``source`` is this rank's POINT SHARD of a larger cloud split
+    over the group's ranks; the valid-point count is summed once and the
+    kernel's normal equations and fitness statistics on every iteration
+    (``utils.collectives.gather_sum``), so every rank runs the identical
+    Gauss-Newton update (the JAX package's ``axis_name``)."""
     res = batched_icp_point_to_plane(
         source.with_(points=source.points[None]), target_grid, init[None],
         max_correspondence_distance, max_iterations, relative_fitness,
-        relative_rmse, use_exp_retraction, prepared, source_order)
+        relative_rmse, use_exp_retraction, prepared, source_order, group)
     return res[0]
 
 
@@ -267,7 +293,8 @@ def icp_generalized(source: PointCloud, source_covs: torch.Tensor,
                     max_iterations: int = 50, relative_fitness: float = 1e-6,
                     relative_rmse: float = 1e-6,
                     prepared: Optional[tuple] = None,
-                    source_order: Optional[torch.Tensor] = None) -> RegistrationResult:
+                    source_order: Optional[torch.Tensor] = None,
+                    group=None) -> RegistrationResult:
     """Generalized (plane-to-plane) ICP, as Open3D
     ``RegistrationGeneralizedICP`` (``CloudRegistration.cpp:16-30``), through
     the fused kernel with its exact tile skip.  The targets arrive in the
@@ -276,7 +303,9 @@ def icp_generalized(source: PointCloud, source_covs: torch.Tensor,
     targets compact; the kernel sweeps a Morton layout of the target and of
     the untransformed source.  Both are made here unless given:
     ``prepared``, what ``cuda_gicp.prepare_target`` returned for the grid
-    and its covariances (they are then not read), and ``source_order``."""
+    and its covariances (they are then not read), and ``source_order``.
+    ``group``: ``source`` and ``source_covs`` are this rank's point shard,
+    as in ``icp_point_to_plane``."""
     if prepared is None:
         prepared = cuda_gicp.prepare_target(target_grid.points_sorted, target_covs_sorted,
                                             target_grid.hashes_sorted != INT32_MAX)
@@ -285,10 +314,12 @@ def icp_generalized(source: PointCloud, source_covs: torch.Tensor,
     maskf = source.mask.to(torch.float32)[:, None].contiguous()
     qcov6 = cuda_gicp.cov6_from_full(source_covs)
     n_src = source.mask.to(torch.float32).sum()
+    if group is not None:
+        n_src = collectives.gather_sum(n_src, group)
     res = _icp_gicp_fused_batch(
         source.points[None], maskf, n_src, qcov6[None], td, tv,
         init.to(torch.float32)[None], max_correspondence_distance,
-        max_iterations, relative_fitness, relative_rmse, layout=layout)
+        max_iterations, relative_fitness, relative_rmse, layout=layout, group=group)
     return res[0]
 
 

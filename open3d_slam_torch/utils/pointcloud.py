@@ -42,8 +42,20 @@ class PointCloud:
     def count(self) -> torch.Tensor:
         return self.mask.sum(dtype=torch.int32)
 
+    def has_normals(self) -> bool:
+        return self.normals is not None
+
+    def has_colors(self) -> bool:
+        return self.colors is not None
+
     def with_(self, **kw) -> "PointCloud":
         return dataclasses.replace(self, **kw)
+
+    def masked_points(self, fill: float = 1e9) -> torch.Tensor:
+        """Points with invalid rows moved to a far sentinel, so that they
+        never take part in neighbour queries."""
+        return torch.where(self.mask[:, None], self.points,
+                           torch.full((), fill, dtype=self.points.dtype, device=self.device))
 
 
 def from_numpy(points: np.ndarray, capacity: Optional[int] = None,

@@ -115,6 +115,10 @@ def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply 4x4 transform(s) to (N, 3) points (leading batch dims on T)."""
     return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]

@@ -1,8 +1,10 @@
-"""Timers and the stage telemetry registry.
+"""Time types, timers and the stage telemetry registry.
 
-Port of ``open3d_slam_tpu.utils.timeutil``.  The JAX package times a stage on
-the host and, on sampled invocations, blocks on the stage's device arrays so
-the host clock covers the device work.  Here every timed stage on a CUDA
+Port of ``open3d_slam_tpu.utils.timeutil``: the reference's
+Cartographer-style universal time scale (``time.hpp:41-55``), an int64
+count of 100 ns ticks since year 1, and its ``Timer`` stopwatch.  The JAX
+package times a stage on the host and, on sampled invocations, blocks on the
+stage's device arrays so the host clock covers the device work.  Here every timed stage on a CUDA
 device records a CUDA event at its start and its end instead: the elapsed
 time between the two events is the device time the stage's queued work
 spans, and reading it never blocks the replay (events are resolved only once
@@ -15,6 +17,30 @@ import time as _time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+# 100 ns ticks per second, as the reference's universal time scale.
+TICKS_PER_SECOND = 10_000_000
+# Seconds from year 1 to the Unix epoch (719162 days, as Cartographer).
+EPOCH_OFFSET_SECONDS = 719_162 * 24 * 3600
+
+
+def from_seconds(seconds: float) -> int:
+    """Seconds (a duration) -> ticks."""
+    return int(round(seconds * TICKS_PER_SECOND))
+
+
+def to_seconds(ticks: int) -> float:
+    """Ticks (a duration) -> seconds."""
+    return ticks / TICKS_PER_SECOND
+
+
+def from_unix_seconds(unix_seconds: float) -> int:
+    """Unix timestamp -> universal time (ticks since year 1)."""
+    return int(round((unix_seconds + EPOCH_OFFSET_SECONDS) * TICKS_PER_SECOND))
+
+
+def to_unix_seconds(t: int) -> float:
+    return t / TICKS_PER_SECOND - EPOCH_OFFSET_SECONDS
 
 
 class Timer:
@@ -40,12 +66,16 @@ class Timer:
             self._start_event = torch.cuda.Event(enable_timing=True)
             self._start_event.record()
 
+    def elapsed_ms(self) -> float:
+        """Host milliseconds since ``start``."""
+        return (_time.perf_counter() - self._start) * 1e3
+
     def add_measurement_ms(self, ms: float):
         self._total_ms += ms
         self._count += 1
 
     def stop(self) -> float:
-        ms = (_time.perf_counter() - self._start) * 1e3
+        ms = self.elapsed_ms()
         if self.recording:
             if self._cuda():
                 end = torch.cuda.Event(enable_timing=True)
@@ -106,6 +136,23 @@ class TelemetryRegistry:
         self._invocations[name] = n + 1
         t.recording = self.enabled and (not sampled or n % self.sample_every == 0)
         return t
+
+    def sync(self, x):
+        """Wait for the device work queued so far on the device of each
+        tensor in ``x`` (a tensor, or a tuple, list or dict of tensors), only
+        when telemetry is on; returns ``x``.  The JAX package's ``sync``
+        blocks on a stage's arrays so that its host timer covers the device
+        work.  The port's stage timers do that job without blocking: on the
+        card each records a CUDA event at its start and end.  ``sync`` is
+        kept for a caller that reads the host clock around a stage."""
+        if not self.enabled:
+            return x
+        leaves = x.values() if isinstance(x, dict) else (
+            x if isinstance(x, (tuple, list)) else (x,))
+        for t in leaves:
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                torch.cuda.current_stream(t.device).synchronize()
+        return x
 
     def maybe_print(self, force: bool = False):
         if not self.enabled:

@@ -17,6 +17,10 @@ has no JAX, without the JAX-importing conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_on_card.py
 
+A 1-rank NCCL group (the card's configuration of ``parallel/``) runs the
+block-sharded point-to-plane and GICP loops and a data-sharded batch, each
+bit-equal to the call without the group.
+
 K3 runs gated (``nn_argmin_within``, the callers' entry) at the closure
 and global-localization shapes and a ragged one, on sensor-range scenes
 made to break a skip that is not exact (targets at r (1 +- 2^-20) from a
@@ -642,3 +646,72 @@ def test_query_order_that_leaves_out_a_query_is_marked_on_card(cuda_device, kern
         out = call(layout._replace(query_order=order))
         assert bool(torch.isnan(out[0, 7, 0])) and not bool(torch.isnan(out[0, 7, 1]))
         assert torch.equal(call(layout), good)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_is_bit_equal_to_no_group_on_card(cuda_device, rng):
+    """The card's configuration of the scale-out layer, a 1-rank NCCL
+    group: block-sharded point-to-plane (K4) and GICP (K1) and a
+    data-sharded batch of 4 registrations (K4, a target per element) give
+    exactly what the calls without the group give, and the batch's first
+    two elements alone what they give in it."""
+    import torch.distributed as dist
+    from open3d_slam_torch.ops import registration as treg
+    from open3d_slam_torch.parallel import mesh as mesh_lib, multihost, sharded_icp
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, k), getattr(b, k)) for k in
+                   ("transformation", "fitness", "inlier_rmse", "num_iterations"))
+
+    def cloud(pts):
+        return tpc.PointCloud(torch.from_numpy(pts).to(cuda_device),
+                              torch.ones(len(pts), dtype=torch.bool, device=cuda_device))
+
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, device="cuda",
+                         timeout_s=120.0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = multihost.global_mesh(1)
+        eye = torch.eye(4, device=cuda_device)
+        offset = np.array([0.1, -0.05, 0.02], np.float32)
+        pts = _planes(rng, 4096)
+        tgt = tn.estimate_normals(cloud(pts), 1.0, max_nn=12)
+        grid = hashgrid.build(tgt, 0.8)
+        scan = tn.estimate_normals(cloud(pts[rng.choice(4096, 1024, replace=False)] + offset),
+                                   1.0, max_nn=12)
+        before = dict(cuda_build.launches)
+        got = sharded_icp.make_block_sharded_icp(mesh, 0.8, max_iterations=10)(
+            sharded_icp.split_points_for_blocks(scan, 1), grid, eye)
+        assert same(got, treg.icp_point_to_plane(scan, grid, eye, 0.8, max_iterations=10))
+        assert float(got.fitness) > 0.9
+
+        covs = tn.covariances_from_normals(tgt)[grid.order.long()]
+        scan_covs = tn.covariances_from_normals(scan)
+        got = sharded_icp.make_block_sharded_gicp(mesh, 0.8, max_iterations=10)(
+            sharded_icp.split_points_for_blocks(scan, 1),
+            sharded_icp.split_points_for_blocks(scan_covs, 1), grid, covs, eye)
+        assert same(got, treg.icp_generalized(scan, scan_covs, grid, covs, eye, 0.8,
+                                              max_iterations=10))
+
+        tgts = [tn.estimate_normals(cloud(_planes(rng, 2048)), 1.0, max_nn=12) for _ in range(4)]
+        grids = hashgrid.build_batched(tpc.PointCloud(
+            torch.stack([t.points for t in tgts]), torch.stack([t.mask for t in tgts]),
+            torch.stack([t.normals for t in tgts])), 0.8)
+        srcs = tpc.PointCloud(
+            torch.stack([t.points[torch.from_numpy(rng.choice(2048, 512, replace=False)).to(
+                cuda_device)] + torch.from_numpy(offset).to(cuda_device) for t in tgts]),
+            torch.ones((4, 512), dtype=torch.bool, device=cuda_device))
+        inits = eye.repeat(4, 1, 1)
+        got = sharded_icp.batched_icp_p2l(srcs, grids, inits, 0.8, max_iterations=10, mesh=mesh)
+        assert same(got, treg.batched_icp_point_to_plane(srcs, grids, inits, 0.8,
+                                                         max_iterations=10))
+        # Two elements alone, as rank 0 of two runs them (other sweep splits).
+        alone = treg.batched_icp_point_to_plane(
+            *mesh_lib.map_tensors(lambda x: x[:2], (srcs, grids, inits)), 0.8, max_iterations=10)
+        assert same(alone, got[:2])
+        assert bool((got.fitness > 0.9).all())
+        launched = {k for k, n in cuda_build.launches.items() if n != before.get(k, 0)}
+        assert ("p2l_normal_eq", (4, 512, 2048)) in launched
+        assert ("gicp_normal_eq", (1, 1024, 4096)) in launched
+    finally:
+        dist.destroy_process_group()
