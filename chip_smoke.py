@@ -19,6 +19,15 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      the poses that path has always given;
   4. replays the first scans once more in sequential mode and checks that
      the pipelined and sequential poses agree;
+  4a. runs step 3's replay again with the Gauss-Newton loops of K1 and K4
+     eager (``gn_graph.MODE = "eager"``) and replayed as CUDA graphs (the
+     default), in turns, three times each, and checks that every run's
+     poses, launch counts and host syncs equal step 3's; then the
+     scan-to-map registration as ``bench.py``'s
+     ``bench_scan2map_gicp_latency`` runs it (4096 x 65536 GICP, 50
+     iterations, 0.8 m, chains of 10 data-dependent calls, median of 3),
+     eager and graphed in turns, and for K1 and K4 each mode's host launch
+     calls (``torch.profiler``), host us and device us per GN iteration;
   5. replays the same scans with the full ``velodyne_puck16`` configuration
      as users run it (loop closures on, undistortion on), counts reset
      again, and checks that a closure was accepted and applied, the ATE,
@@ -62,12 +71,14 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      for K2's prepass also the matmul + topk chain it replaced, and for the
      sweeps the share of pairs their skip leaves; K3 both gated (the
      callers' entry, held by their verdict) and ungated (bit-equal), with
-     ``torch.cdist(...).argmin(1)`` timed beside it;
+     ``torch.cdist(...).argmin(1)`` timed beside it; the batched 6x6 solve
+     of the loops (``cuda_solve6``, at B > 1) bit-equal to its plain version;
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
-Steps 5a, 5b, 6 to 8 and 8a each set every launch count to 0 just before and
-read it just after, and fail if a kernel of their path did not run.
+Steps 4a, 5a, 5b, 6 to 8 and 8a each set every launch count to 0 just
+before and read it just after, and fail if a kernel of their path did not
+run.  A launch inside a CUDA graph counts at each replay of the graph.
 
 It exits non-zero, and prints no result line, on any failure, without a
 card, or when run outside the repository.
@@ -113,6 +124,12 @@ PAR_ITERS = {"easy": 15, "hard": 30}
 PAR_REPEATS = 3
 BLOCK_SCAN, BLOCK_MAP, BLOCK_VALID = 16384, 65536, 40000
 BLOCK_ITERS = 10
+# Step 4a: step 3's replay, eager and graphed Gauss-Newton loops in turns;
+# bench.py's bench_scan2map_gicp_latency (scan, map, iterations,
+# correspondence distance, chained calls, repeats).
+AB_REPEATS = 3
+S2M_SCAN, S2M_MAP, S2M_ITERS, S2M_CORR = 4096, 65536, 50, 0.8
+S2M_CHAIN, S2M_REPEATS = 10, 3
 
 
 def fail(msg: str):
@@ -177,22 +194,35 @@ class Recorder:
     """Stands in for a kernel wrapper during the replay and keeps, for each
     launch key (kernel, shape) the wrapper counted, the last inputs it
     launched on; keys in ``frozen`` keep theirs (a shape the replays ran
-    stays held at the replays' inputs when a later step runs it too).  It
-    counts nothing itself: the launch counts are the wrappers' own, in
-    ``cuda_build.launches``."""
+    stays held at the replays' inputs when a later step runs it too).  A
+    launch that a CUDA graph's capture records (``gn_graph``) counts at the
+    graph's replays: its inputs are the graph's own buffers, which hold what
+    the graph's last replay gave the kernel.  Of those a key keeps the first
+    graph's (a loop's start, which every call replays, or for the 6x6
+    solve the first chunk's, which reads the loop's state): a later chunk,
+    such as a remainder that a loop breaking early never reaches, may not
+    have run.  It counts nothing itself: the launch counts are the
+    wrappers' own, in ``cuda_build.launches``."""
 
     def __init__(self, cuda_build, module, name):
         self.cuda_build, self.module, self.name = cuda_build, module, name
         self.wrapper = getattr(module, name)
         self.inputs = {}
         self.frozen = set()
+        self.captured = set()
 
     def __call__(self, *args, **kwargs):
-        before = dict(self.cuda_build.launches)
+        counts = self.cuda_build.capture_counts()
+        skip = self.frozen | (self.captured if counts is not None else set())
+        if counts is None:
+            counts = self.cuda_build.launches
+        before = dict(counts)
         out = self.wrapper(*args, **kwargs)
-        for key, n in self.cuda_build.launches.items():
-            if n != before.get(key, 0) and key not in self.frozen:
+        for key, n in counts.items():
+            if n != before.get(key, 0) and key not in skip:
                 self.inputs[key] = (args, kwargs)
+                if counts is not self.cuda_build.launches:
+                    self.captured.add(key)
         return out
 
     def install(self):
@@ -200,6 +230,16 @@ class Recorder:
 
     def remove(self):
         setattr(self.module, self.name, self.wrapper)
+
+
+def rebound(layout):
+    """A sweep layout a graph's capture recorded, bound anew to its target
+    arrays: the graph's static buffers, which each call's copy-in changes
+    together with the layout's own."""
+    from open3d_slam_torch.ops import nn_layout
+    if layout is None:
+        return None
+    return layout._replace(target=nn_layout.bind(layout.target, *layout.target.arrays))
 
 
 GICP_TOL = 1e-5     # Gram entry vs sqrt(|G_ii||G_jj|); d2 sum vs itself
@@ -224,6 +264,8 @@ def gicp_entry(cuda_gicp, shape, n_launch, args, kwargs):
     from open3d_slam_torch.ops import nn_layout
     bound = inspect.signature(cuda_gicp.gicp_normal_eq).bind(*args, **kwargs)
     bound.apply_defaults()
+    bound.arguments["layout"] = rebound(bound.arguments["layout"])
+    args, kwargs = bound.args, {}
     q_pts, q_mask_f, q_cov6, td, tv, r2, t_aabb, layout = bound.args
     out_k = cuda_gicp.gicp_normal_eq(*args, **kwargs)
     out_p = cuda_gicp.gicp_normal_eq_plain(*bound.args)
@@ -431,6 +473,7 @@ def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
     from open3d_slam_torch.ops import nn_layout
     bound = inspect.signature(cuda_icp.p2l_normal_eq).bind(*args, **kwargs)
     bound.apply_defaults()
+    bound.arguments["layout"] = rebound(bound.arguments["layout"])
     inputs = bound.args
     out_k = cuda_icp.p2l_normal_eq(*inputs)
     out_p = cuda_icp.p2l_normal_eq_plain(*inputs)
@@ -470,6 +513,31 @@ def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
                 "library_ms": None}
 
 
+def solve6_entry(cuda_solve6, shape, n_launch, args, kwargs):
+    """The batched 6x6 solve of the GN loops at B > 1 (``registration._solve6``
+    on the card): bit-equal to its plain version."""
+    import torch
+    JtJ, Jtr = args
+    got = cuda_solve6.solve6(JtJ, Jtr)
+    want = cuda_solve6.solve6_plain(JtJ, Jtr)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: cuda_solve6.solve6(JtJ, Jtr), 20)
+    plain = time_ms(lambda: cuda_solve6.solve6_plain(JtJ, Jtr), 3)
+    (b,) = shape
+    # 183 float32 operations a system (trace and jitter 8, the left-looking
+    # factor 97, the two substitutions 78); 42 floats read, 6 written.
+    b_ms, b_by = bound_ms(4.0 * b * 48, 183.0 * b)
+    print(f"solve6 B={b}: bit-equal to plain {equal} (max abs err {err:.3e}), {ms:.4f} ms "
+          f"vs plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return equal, {"name": f"solve6[{b}]", "route": "cuda",
+                   "source": "open3d_slam_torch/csrc/solve6.cu",
+                   "replaces": "open3d_slam_tpu/ops/registration.py:85",
+                   "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def poses_sha1(poses) -> str:
     """The first 16 hex digits of the sha1 of 4x4 poses as float64: two runs
     with equal digests gave bit-equal poses."""
@@ -483,6 +551,184 @@ def pose_error(a, b):
     d = np.linalg.inv(a) @ b
     cos = np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
     return float(np.linalg.norm(a[:3, 3] - b[:3, 3])), float(np.degrees(np.arccos(cos)))
+
+
+def host_launch_calls(fn):
+    """(CUDA runtime calls that put work on the card, by name, and the
+    device's busy us) while ``fn()`` runs, from ``torch.profiler``:
+    kernel and graph launches, copies and memsets.  None if the profiler
+    saw no runtime call."""
+    import collections
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = collections.Counter(
+        e.name for e in prof.events()
+        if re.match(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy\w*Async|Memset\w*Async)",
+                    e.name))
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    busy, end = 0.0, -1.0
+    for a, b in spans:                  # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (calls or None), busy
+
+
+def graph_ab(params, scans, seq, pose_digest, by_key, syncs_want, cuda_build, devmod,
+             gn_graph, SlamWrapper, name_power):
+    """Step 4a, first half: step 3's replay with the Gauss-Newton loops
+    eager (``gn_graph.MODE = "eager"``) and graphed, in turns (ABAB...),
+    ``AB_REPEATS`` each; every run's poses, launch counts and host syncs
+    equal step 3's.  Returns (ok, the last graphed run's counts)."""
+    import numpy as np
+    import torch
+    p50 = {"eager": [], "graph": []}
+    ok, counts = True, {}
+    try:
+        for _ in range(AB_REPEATS):
+            for mode in ("eager", "graph"):
+                gn_graph.MODE = mode
+                slam = SlamWrapper(params, device="cuda")
+                slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+                torch.cuda.synchronize()
+                per_scan_ms, _, key, syncs = replay(slam, scans, cuda_build, devmod)
+                digest = poses_sha1(slam.get_trajectory()[1])
+                p50[mode].append(float(np.median(per_scan_ms)))
+                same = digest == pose_digest and key == by_key and syncs == syncs_want
+                if not same:
+                    print(f"step 4a: the {mode} replay gave poses {digest}, {syncs} host "
+                          f"syncs, launches {json.dumps(shape_counts(key))}; step 3 gave "
+                          f"{pose_digest}, {syncs_want}", file=sys.stderr)
+                ok = ok and same
+                counts = key
+                del slam
+    finally:
+        gn_graph.MODE = "graph"
+    print(f"step 4a: closures-off replay, GN loops eager vs graphed in turns "
+          f"({AB_REPEATS} each): per-scan p50 eager {[round(x, 3) for x in p50['eager']]} ms "
+          f"(median {np.median(p50['eager']):.3f}), graphed "
+          f"{[round(x, 3) for x in p50['graph']]} ms (median {np.median(p50['graph']):.3f}); "
+          f"poses, launch counts and host syncs equal to step 3's in every run {ok}; "
+          f"graphs captured (keys, graphs) {gn_graph.captured()}; {name_power}", flush=True)
+    return ok, counts
+
+
+def scan_to_map_chain(cuda_build, gn_graph, datasets, pclib, name_power):
+    """Step 4a, second half: the scan-to-map registration as
+    ``bench.py:bench_scan2map_gicp_latency`` runs it (a 4096-point scan
+    against a 65536-point map of a SyntheticWorld, GICP, 50 iterations,
+    correspondence 0.8 m; ``S2M_CHAIN`` calls, each from the previous one's
+    result, median of ``S2M_REPEATS``), eager and graphed in turns; then for
+    K1 (GICP) and K4 (point-to-plane) on the same clouds, with the target
+    and query order made beforehand, each mode's host launch calls, host us
+    (a call's synchronised wall time) and device us per GN iteration run.
+    The counts are set to 0 before the inputs are made and read after the
+    chains.  Returns (ok, those counts)."""
+    import collections
+    import statistics
+    import numpy as np
+    import torch
+    from open3d_slam_torch.ops import cuda_gicp, hashgrid, nn_layout, normals as normals_ops
+    from open3d_slam_torch.ops import registration as reg_ops
+
+    cuda_build.launches.clear()
+    dev = torch.device("cuda")
+    world = datasets.SyntheticWorld(datasets.SyntheticWorldConfig(
+        extent=35.0, n_ground=120000, n_walls=60000, n_pillars=40000))
+    T = np.eye(4)
+    T[:3, 3] = [5.0, 3.0, 1.5]
+    map_scan = world.render_scan(T, max_range=35.0, n_points=S2M_MAP)
+    scan = world.render_scan(T, max_range=25.0, n_points=S2M_SCAN) + np.array(
+        [0.1, -0.05, 0.0], np.float32)
+    map_pc = normals_ops.estimate_normals(
+        pclib.from_numpy(map_scan, capacity=S2M_MAP, device=dev), 1.0, max_nn=20)
+    grid = hashgrid.build(map_pc, S2M_CORR)
+    covs_sorted = normals_ops.covariances_from_normals(map_pc)[grid.order.long()]
+    scan_pc = normals_ops.estimate_normals(
+        pclib.from_numpy(scan, capacity=S2M_SCAN, device=dev), 1.0, max_nn=20)
+    scan_covs = normals_ops.covariances_from_normals(scan_pc)
+    eye = torch.eye(4, device=dev)
+    # Per GN iteration, the loops alone: targets and query order made once.
+    valid = grid.hashes_sorted != hashgrid.INT32_MAX
+    k1_target = cuda_gicp.prepare_target(grid.points_sorted, covs_sorted, valid)
+    k4_target = reg_ops.point_to_plane_target(grid)
+    order = nn_layout.query_order(scan_pc.points, scan_pc.mask)
+    calls = {
+        "gicp_normal_eq": lambda init: reg_ops.icp_generalized(
+            scan_pc, scan_covs, grid, covs_sorted, init, S2M_CORR, max_iterations=S2M_ITERS,
+            prepared=k1_target, source_order=order),
+        "p2l_normal_eq": lambda init: reg_ops.icp_point_to_plane(
+            scan_pc, grid, init, S2M_CORR, max_iterations=S2M_ITERS, prepared=k4_target,
+            source_order=order)}
+
+    def chain():
+        run = (lambda init: reg_ops.icp_generalized(scan_pc, scan_covs, grid, covs_sorted,
+                                                    init, S2M_CORR, max_iterations=S2M_ITERS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(eye)
+        for _ in range(S2M_CHAIN - 1):
+            res = run(eye + 0.0 * res.transformation)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / S2M_CHAIN, res
+
+    ms, last, counts = {"eager": [], "graph": []}, {}, {}
+    try:
+        for mode in ("eager", "graph"):       # warm: builds, the graphs' capture
+            gn_graph.MODE = mode
+            chain()
+        for _ in range(S2M_REPEATS):
+            for mode in ("eager", "graph"):
+                gn_graph.MODE = mode
+                t, last[mode] = chain()
+                ms[mode].append(t)
+        counts = dict(cuda_build.launches)
+        per_iter = {}
+        for kernel, run in calls.items():
+            for mode in ("eager", "graph"):
+                gn_graph.MODE = mode
+                run(eye)
+                before = collections.Counter(cuda_build.launches)
+                host_us = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = run(eye)
+                    torch.cuda.synchronize()
+                    host_us.append((time.perf_counter() - t0) * 1e6)
+                made = collections.Counter(cuda_build.launches) - before
+                iters = cuda_build.launch_total(kernel, made) / 5 - 1
+                launched, busy_us = host_launch_calls(lambda: run(eye))
+                per_iter[(kernel, mode)] = (
+                    statistics.median(host_us) / iters,
+                    None if launched is None else sum(launched.values()) / iters,
+                    busy_us / iters, iters, int(res.num_iterations), launched)
+    finally:
+        gn_graph.MODE = "graph"
+    equal = same_result(last["eager"], last["graph"])
+    print(f"scan-to-map GICP {S2M_SCAN} x {S2M_MAP}, {S2M_ITERS} iterations, corr "
+          f"{S2M_CORR} m, chains of {S2M_CHAIN} (median of {S2M_REPEATS}): eager "
+          f"{statistics.median(ms['eager']):.4f} ms a call {[round(x, 4) for x in ms['eager']]}, "
+          f"graphed {statistics.median(ms['graph']):.4f} ms a call "
+          f"{[round(x, 4) for x in ms['graph']]}; fitness {float(last['graph'].fitness):.4f}, "
+          f"{int(last['graph'].num_iterations)} iterations; graphed bit-equal to eager "
+          f"{equal}; {name_power}", flush=True)
+    for (kernel, mode), (host, launched, dev_us, iters, n_it, names) in per_iter.items():
+        print(f"  {kernel} {mode}: host us per GN iteration {host:.2f}, host launch calls "
+              f"per GN iteration {'not measured' if launched is None else round(launched, 3)}, "
+              f"device us per GN iteration {dev_us:.2f} ({iters:g} iterations run, "
+              f"{n_it} counted); runtime calls {json.dumps(names)}", flush=True)
+    missing = missing_kernels(cuda_build, counts, ("gicp_normal_eq", "kth_neighbor_d2_within",
+                                                   "radius_moments_at"))
+    if missing:
+        print(f"the scan-to-map chain never launched {missing}", file=sys.stderr)
+    ok = equal and not missing and float(last["graph"].fitness) > 0.5
+    return ok, counts
 
 
 def missing_kernels(cuda_build, counts, names):
@@ -1024,7 +1270,7 @@ def main() -> int:
         from open3d_slam_torch.models.async_driver import AsyncSlamDriver
         from open3d_slam_torch.models.slam_wrapper import SlamWrapper
         from open3d_slam_torch.ops import (cuda_build, cuda_gicp, cuda_icp, cuda_knn,
-                                           cuda_normals)
+                                           cuda_normals, cuda_solve6, gn_graph)
         from open3d_slam_torch.parallel import multi_start
         from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
         from open3d_slam_torch.utils import pointcloud as pclib
@@ -1071,17 +1317,19 @@ def main() -> int:
     scans_sha1 = digest.hexdigest()[:16]
     print(f"rendered {SEQUENCE}: {len(seq.scans)} scans in "
           f"{time.perf_counter() - t0:.1f} s, sha1 {scans_sha1}", flush=True)
-    slam = SlamWrapper(params, device="cuda")
-    slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
-    torch.cuda.synchronize()
-
+    # The recorders go in before the warm-up: the Gauss-Newton loops'
+    # graphs are captured there, and a graph's kernels are recorded then.
     recorders = [Recorder(cuda_build, cuda_gicp, "gicp_normal_eq"),
                  Recorder(cuda_build, cuda_normals, "kth_neighbor_d2_within"),
                  Recorder(cuda_build, cuda_normals, "radius_moments_at"),
                  Recorder(cuda_build, cuda_knn, "nn_argmin_within"),
-                 Recorder(cuda_build, cuda_icp, "p2l_normal_eq")]
+                 Recorder(cuda_build, cuda_icp, "p2l_normal_eq"),
+                 Recorder(cuda_build, cuda_solve6, "solve6")]
     for rec in recorders:
         rec.install()
+    slam = SlamWrapper(params, device="cuda")
+    slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+    torch.cuda.synchronize()
     scans = list(zip(seq.scans, seq.timestamps))[N_SKIP:]
     n = len(scans)
     per_scan_ms, wall_s, by_key, syncs = replay(slam, scans, cuda_build, devmod)
@@ -1141,6 +1389,14 @@ def main() -> int:
           "of path, for the localization CLI")
     replay_poses = poses
     del slam, seq_slam
+
+    # 4a. The Gauss-Newton loops eager and graphed in turns: step 3's replay
+    # and bench.py's scan-to-map chain.
+    good, ab_key = graph_ab(params, scans, seq, pose_digest, by_key, syncs, cuda_build,
+                            devmod, gn_graph, SlamWrapper, name_power)
+    ok = ok and good
+    good, chain_key = scan_to_map_chain(cuda_build, gn_graph, datasets, pclib, name_power)
+    ok = ok and good
 
     # 5. The full configuration: loop closures and undistortion on.
     full = cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
@@ -1235,7 +1491,8 @@ def main() -> int:
     # It removes the recorders once its path has run.
     good, par_key = scale_out(cuda_build, name_power, datasets, pclib, recorders)
     ok = ok and good
-    phases = (full_key, by_key, dense_key, async_key, cli_key, global_key, p2l_key, par_key)
+    phases = (full_key, by_key, ab_key, chain_key, dense_key, async_key, cli_key, global_key,
+              p2l_key, par_key)
     if set().union(*phases) != {key for rec in recorders for key in rec.inputs}:
         print("a launch key has no recorded inputs", file=sys.stderr)
         ok = False
@@ -1248,11 +1505,12 @@ def main() -> int:
                                (recorders[1], kth_entry, cuda_normals),
                                (recorders[2], moments_entry, cuda_normals),
                                (recorders[3], knn_entry, cuda_knn),
-                               (recorders[4], icp_entry, cuda_icp)):
+                               (recorders[4], icp_entry, cuda_icp),
+                               (recorders[5], solve6_entry, cuda_solve6)):
         for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
             key = (name, shape)
             n_launch = full_key.get(key, by_key.get(key, sum(
-                c.get(key, 0) for c in (cli_key, global_key, p2l_key, par_key))))
+                c.get(key, 0) for c in (chain_key, cli_key, global_key, p2l_key, par_key))))
             good, entry = entry_fn(mod, shape, n_launch, args, kwargs)
             ok = ok and good
             entries.append(entry)

@@ -15,14 +15,22 @@ capacities, then measures the next ``MEASURED_SCANS`` scans twice:
     under ``torch.profiler``; prints the wall time per scan, the device's
     busy and idle share, and the operations that take most device time.
 
-Needs a CUDA card.  Stages (nested ones are part of their parent):
+Needs a CUDA card.  Stages (a nested one is part of its parent, and is
+named after it where its parent differs from call to call):
 odometry.preprocess > normals (layout, kth_prepass, moments_kernel);
-odometry.register > gicp; mapper.preprocess > normals; mapper.patch_prepare;
-mapper.register > gicp; submap.insert; closure.features (features and
-odometry constraints of a finished submap) > normals, knn; closure.job (one
-phase of the loop-closure job, with the pose-graph solve when a closure is
-accepted) > gicp, knn.  A closure stage appears only in windows where a
-submap finishes.
+odometry.target_prep (``_prepare_target_fn``: the grid, covariances, K1's
+target arrays and layout); odometry.register > gn_loop (the fused loop,
+CUDA-graph replays), query_order; mapper.preprocess > normals;
+mapper.patch_prepare > target_prep; mapper.register > gn_loop, query_order;
+submap.insert; closure.features (features and odometry constraints of a
+finished submap) > normals, knn; closure.job (one phase of the loop-closure
+job, with the pose-graph solve when a closure is accepted) > target_prep,
+gn_loop, knn.  ``<register>.prep`` is the register stage less its gn_loop:
+the source's covariances and query order, the sweep layout.  A closure stage appears only in windows where a submap finishes.
+The kernels a graph replays are not timed one by one (a synchronisation
+inside a capture would break it): the stage pass prints each kernel's
+launches per scan from ``cuda_build.launches``, the profiler pass their
+device time.
 """
 from __future__ import annotations
 
@@ -40,7 +48,8 @@ from open3d_slam_torch.models.cloud_registration import CloudRegistrationStrateg
 from open3d_slam_torch.models.odometry import LidarOdometry
 from open3d_slam_torch.models.slam_wrapper import SlamWrapper
 from open3d_slam_torch.models.submap import Submap
-from open3d_slam_torch.ops import cuda_gicp, cuda_knn, cuda_normals
+from open3d_slam_torch.ops import cuda_build, cuda_knn, cuda_normals, gn_graph, nn_layout
+from open3d_slam_torch.ops import registration
 from open3d_slam_torch.utils import config as cfg, device as devmod
 
 WARM_SCANS = 40       # the passes then measure scans 40-69 and 70-99
@@ -48,21 +57,30 @@ MEASURED_SCANS = 30
 
 
 class StageTimer:
-    """Replaces methods with synchronised, timed versions while active."""
+    """Replaces functions with synchronised, timed versions while active.
+    A label that starts with "." names a stage nested in the innermost
+    timed stage the call is in (``default`` when it is in none)."""
 
     def __init__(self):
         self.ms = collections.defaultdict(float)
         self.calls = collections.Counter()
         self._patched = []
+        self._stack = []
 
-    def wrap(self, owner, attr, label_of):
+    def wrap(self, owner, attr, label_of, default=None):
         fn = getattr(owner, attr)
 
         def timed(*args, **kwargs):
             label = label_of(*args)
+            if label.startswith("."):
+                label = self._stack[-1] + label if self._stack else default
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(*args, **kwargs)
+            self._stack.append(label)
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self._stack.pop()
             torch.cuda.synchronize()
             self.ms[label] += (time.perf_counter() - t) * 1e3
             self.calls[label] += 1
@@ -102,19 +120,24 @@ def main() -> int:
     st.wrap(LidarOdometry, "preprocess", lambda *a: "odometry.preprocess")
     st.wrap(s2m.ScanToMapIcp, "preprocess", lambda *a: "mapper.preprocess")
     st.wrap(s2m, "_patch_prepare", lambda *a: "mapper.patch_prepare")
+    st.wrap(CloudRegistrationStrategy, "prepare_target", lambda *a: ".target_prep",
+            default="odometry.target_prep")
+    st.wrap(s2m, "_prepare_target_fn", lambda *a: ".target_prep")
     st.wrap(CloudRegistrationStrategy, "register", _register_label)
+    for loop in ("_icp_gicp_fused_batch", "_icp_p2l_fused_batch"):
+        st.wrap(registration, loop, lambda *a: ".gn_loop", default="gn_loop")
+    st.wrap(nn_layout, "query_order", lambda *a: ".query_order", default="query_order")
     st.wrap(Submap, "insert_scan", lambda *a: "submap.insert")
     st.wrap(cuda_normals, "normals_layout", lambda *a: "normals.layout")
     st.wrap(cuda_normals, "kth_neighbor_d2_within", lambda *a: "normals.kth_prepass")
     st.wrap(cuda_normals, "radius_moments_at", lambda *a: "normals.moments_kernel")
-    st.wrap(cuda_gicp, "gicp_normal_eq",
-            lambda q, *r: f"gicp_kernel[{q.shape[1]}x{r[2].shape[-1]}]")
     st.wrap(cuda_knn, "nn_argmin_within",
             lambda q, m, lay, *r: f"knn_kernel[{q.shape[1]}x{lay.target.order.shape[-1]}]")
     st.wrap(SlamWrapper, "compute_features_if_ready", lambda *a: "closure.features")
     st.wrap(SlamWrapper, "_advance_loop_closures", lambda *a: "closure.job")
     window = scans[WARM_SCANS:WARM_SCANS + MEASURED_SCANS]
     devmod.host_syncs.count = 0
+    cuda_build.launches.clear()
     t = time.perf_counter()
     for pts, ts in window:
         slam.process_scan_pipelined(pts, ts)
@@ -124,7 +147,14 @@ def main() -> int:
     n = len(window)
     stages = {k: {"ms_per_scan": v / n, "calls_per_scan": st.calls[k] / n}
               for k, v in sorted(st.ms.items())}
-    print(json.dumps({"stage_pass_ms_per_scan": synced_ms, "stages": stages}, indent=1))
+    for reg in ("odometry.register", "mapper.register"):
+        if reg in st.ms:
+            stages[f"{reg}.prep"] = {"ms_per_scan": (st.ms[reg] - st.ms[f"{reg}.gn_loop"]) / n,
+                                     "calls_per_scan": st.calls[reg] / n}
+    launches = {f"{k}{list(sh)}": c / n for (k, sh), c in sorted(cuda_build.launches.items())}
+    print(json.dumps({"stage_pass_ms_per_scan": synced_ms, "stages": stages,
+                      "launches_per_scan": launches,
+                      "graphs_captured": gn_graph.captured()}, indent=1))
 
     # Profiler pass.
     window = scans[WARM_SCANS + MEASURED_SCANS:WARM_SCANS + 2 * MEASURED_SCANS]

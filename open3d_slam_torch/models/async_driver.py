@@ -9,8 +9,10 @@ scans; so with no scan dropped the poses are those of the sequential replay.
 
 On the card the worker launches every kernel, on its own current stream (the
 default stream, as for every thread that sets none); the caller's thread only
-copies scans to the card.  An error in the worker is raised again at the next
-``add_range_scan`` and at ``stop_workers``; it is never swallowed.
+copies scans to the card, and not while the worker captures a CUDA graph of
+a Gauss-Newton loop (``gn_graph.capturing``).  An error in the worker is
+raised again at the next ``add_range_scan`` and at ``stop_workers``; it is
+never swallowed.
 
 Offline replay should call ``SlamWrapper.process_scan_pipelined`` directly.
 """
@@ -23,6 +25,7 @@ from typing import Optional
 import numpy as np
 
 from open3d_slam_torch.models.slam_wrapper import SlamWrapper
+from open3d_slam_torch.ops import gn_graph
 
 _JOIN_TIMEOUT_SEC = 60.0    # the worker finishes the scan it holds first
 
@@ -64,7 +67,8 @@ class AsyncSlamDriver:
         as the wrapper does.  A full buffer drops its oldest scan: callers
         that must keep every scan wait while ``is_backpressured``."""
         self._raise_worker_error()
-        return self.slam.add_range_scan(points, timestamp)
+        with gn_graph.capturing:
+            return self.slam.add_range_scan(points, timestamp)
 
     def is_backpressured(self) -> bool:
         """Either buffer full (``RosbagRangeDataProcessorRos.cpp:69-84``)."""

@@ -12,11 +12,14 @@ the sum.
 ``launches`` counts every kernel launch by (kernel, input shape): each
 wrapper adds one where it launches its kernel and nowhere else.  The counter
 lives here, not on the wrapper functions, so wrapping or replacing a wrapper
-neither hides nor forks it.
+neither hides nor forks it.  A launch that a CUDA graph's capture records
+(``graph_launches``) runs at each replay of the graph, so it is counted
+there: the capture's counts are kept apart and ``credit``ed per replay.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +33,7 @@ from open3d_slam_torch.utils.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gicp", "normals", "knn", "icp")
+SOURCES = ("gicp", "normals", "knn", "icp", "solve6")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,12 +41,42 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 launches: collections.Counter = collections.Counter()
 _launches_lock = threading.Lock()
+_capture = threading.local()
 
 
 def count_launch(kernel: str, shape: Tuple[int, ...]):
+    held = capture_counts()
+    if held is not None:
+        held[(kernel, tuple(shape))] += 1
+        return
     # A lock: the async driver's worker thread launches too.
     with _launches_lock:
         launches[(kernel, tuple(shape))] += 1
+
+
+def capture_counts() -> Optional[collections.Counter]:
+    """The launches recorded so far by this thread's CUDA-graph capture, or
+    None outside one."""
+    return getattr(_capture, "counts", None)
+
+
+@contextlib.contextmanager
+def graph_launches():
+    """Inside the block, this thread's launches are recorded into a CUDA
+    graph, not run: they count into the Counter it yields, not into
+    ``launches``; ``credit`` it at each replay of the graph."""
+    counts = collections.Counter()
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def credit(counts: collections.Counter):
+    """Count the launches of one replay of a CUDA graph (``graph_launches``)."""
+    with _launches_lock:
+        launches.update(counts)
 
 
 def launch_total(kernel: str, counts: Optional[Dict] = None) -> int:

@@ -1,0 +1,248 @@
+"""The Gauss-Newton loops of K1 and K4 kept on the card: CUDA graphs.
+
+The JAX package runs each fused loop (``registration._icp_gicp_fused_batch``,
+``_icp_p2l_fused_batch``) as one ``lax.while_loop``: one compiled program
+that returns to the host once per registration.  The port's counterpart is
+a handful of ``torch.cuda.CUDAGraph``s per loop shape, captured once and
+replayed for every call:
+
+- the start, the normal equations at the initial poses (``k = 0``);
+- a chunk of ``DONE_CHECK_EVERY`` iterations, between whose replays the
+  host reads ``done`` once, through the counted ``pull_bool``;
+- a remainder chunk of ``max_iterations % DONE_CHECK_EVERY`` iterations,
+  so that no loop runs past its limit.
+
+A loop is a state (``GNState``) and two functions the caller builds from a
+dict of input tensors: ``start()`` gives the first state and ``step(state)``
+one iteration (``registration._gn_start``, ``_gn_iteration``).  ``drive``
+runs them in chunks for both paths, so the eager loop (the CPU, a
+``group``, ``MODE = "eager"``) and the graphs share the iteration's math and
+read ``done`` after the same iterations.
+
+``run`` keeps, per key (everything that fixes the captured work: the loop
+kind, the shapes, the retraction, the device, the sweep's tile and split
+counts, the correspondence distance and the convergence thresholds), static
+buffers for the inputs and the state and the graphs that read and write
+them.  A call copies its inputs in (``copy_``), replays the start and the
+chunks, and clones the result out, so the next call cannot overwrite a
+result already returned.
+
+Capture (``_Graph``) runs on a side stream, after one start and one step
+there (the warm-up torch's graph docs prescribe): the kernels' scratch
+(``nn_layout.scratch``, keyed by device and stream) and cuBLAS's workspace
+for that stream exist before capture, so nothing is allocated or filled by
+the graph but its own intermediates.  The warm-up's launches are real and
+counted; the capture's are recorded (``cuda_build.graph_launches``) and
+credited at each replay.  The graph holds the scratch it was captured with,
+which its kernels leave as they found it (keys all ones, tickets zero).
+Capture uses ``capture_error_mode="thread_local"``: the online driver
+registers on its worker thread while the caller's thread copies scans in.
+Even so, a host-to-device copy that another thread issues during a capture
+crashed torch (a segfault at ``capture_end``, on the card's torch 2.11), so
+warm-up and capture hold ``capturing``, which the online driver's ingest
+holds too.  A capture or replay that fails raises; nothing falls back to
+the eager loop.
+
+``MODE`` selects the path: ``"graph"`` (the default: CUDA tensors replay
+graphs, others run the eager loop), ``"eager"`` (the eager loop everywhere:
+tests and ``chip_smoke.py``'s A/B) or ``"static"`` (the static buffers with
+an eager runner on any device: the copy-in and clone-out tested on the
+CPU).  Nothing on the main path sets it.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Hashable, List, NamedTuple, Tuple
+
+import torch
+
+from open3d_slam_torch.ops import cuda_build, nn_layout
+from open3d_slam_torch.utils.device import pull_bool
+
+DONE_CHECK_EVERY = 4
+MODE = "graph"
+
+_entries: Dict[Hashable, "_Loop"] = {}
+_lock = threading.Lock()
+# Held while a graph is warmed up and captured; a thread that puts work on
+# the card beside a loop on another thread holds it for that work.
+capturing = threading.Lock()
+_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+class GNState(NamedTuple):
+    T: torch.Tensor      # (B, 4, 4) poses
+    JtJ: torch.Tensor    # (B, 6, 6) normal equations at T
+    Jtr: torch.Tensor    # (B, 6)
+    fit: torch.Tensor    # (B,) fitness at T
+    rmse: torch.Tensor   # (B,) inlier RMSE at T
+    it: torch.Tensor     # (B,) int32 iterations taken
+    done: torch.Tensor   # (B,) bool converged (frozen)
+
+
+Program = Tuple[Callable[[], GNState], Callable[[GNState], GNState]]
+
+
+def chunk_lengths(max_iterations: int) -> List[int]:
+    """The iterations of each chunk: whole chunks of ``DONE_CHECK_EVERY``,
+    then the remainder."""
+    whole, rest = divmod(max_iterations, DONE_CHECK_EVERY)
+    return [DONE_CHECK_EVERY] * whole + ([rest] if rest else [])
+
+
+def steps(step: Callable[[GNState], GNState], state: GNState, k: int) -> GNState:
+    for _ in range(k):
+        state = step(state)
+    return state
+
+
+def drive(start: Callable[[], GNState], chunk: Callable[[GNState, int], GNState],
+          max_iterations: int) -> GNState:
+    """The loop: ``start()``, then ``chunk(state, k)`` for each chunk, with a
+    counted read of ``done`` after every whole chunk (a converged element is
+    frozen, so iterations past its convergence change nothing)."""
+    state = start()
+    for k in chunk_lengths(max_iterations):
+        state = chunk(state, k)
+        if k == DONE_CHECK_EVERY and pull_bool(state.done.all()):
+            break
+    return state
+
+
+def uses_static_buffers(device: torch.device) -> bool:
+    """Whether a loop without a group on ``device`` goes through ``run``."""
+    return MODE == "static" or (MODE == "graph" and device.type == "cuda")
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    s = _streams.get(device)
+    if s is None:
+        s = _streams[device] = torch.cuda.Stream(device)
+    return s
+
+
+class _Eager:
+    """A chunk run as it is, on the static buffers."""
+
+    def __init__(self, body: Callable[[], None]):
+        self.replay = body
+
+
+class _Graph:
+    """A chunk captured into a CUDA graph on the side stream."""
+
+    def __init__(self, body: Callable[[], None], stream: torch.cuda.Stream):
+        self.graph = torch.cuda.CUDAGraph()
+        with cuda_build.graph_launches() as counts:
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                body()
+        self.launches = counts
+
+    def replay(self):
+        self.graph.replay()
+        cuda_build.credit(self.launches)
+
+
+class _Loop:
+    """One key's static buffers and the chunks that run on them."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor],
+                 program: Callable[[Dict[str, torch.Tensor]], Program], capture: bool):
+        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
+                       for k, v in inputs.items()}
+        T0 = inputs["inits"]
+        b, dev = T0.shape[0], T0.device
+        # JtJ and Jtr as views of a (B, 8, 128) buffer, with the strides of the
+        # views ``cuda_gicp.unpack`` gives the eager loop.
+        gram = torch.zeros((b, 8, 128), dtype=torch.float32, device=dev)
+        self.state = GNState(
+            torch.zeros((b, 4, 4), dtype=torch.float32, device=dev),
+            gram[:, 0:6, 0:6], gram[:, 0:6, 6],
+            torch.zeros(b, dtype=torch.float32, device=dev),
+            torch.zeros(b, dtype=torch.float32, device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev),
+            torch.zeros(b, dtype=torch.bool, device=dev))
+        self.start, self.step = program(self.inputs)
+        self.capture = capture
+        self.stream = _side_stream(dev) if capture else None
+        self.runs: Dict[int, object] = {}
+        self.scratch = None
+
+    def load(self, inputs: Dict[str, torch.Tensor]):
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
+
+    def _body(self, k: int) -> Callable[[], None]:
+        def body():
+            new = self.start() if k == 0 else steps(self.step, self.state, k)
+            for buf, v in zip(self.state, new):
+                buf.copy_(v)
+        return body
+
+    def _warm_up(self):
+        """One start and one step on the side stream, on the inputs just
+        loaded, before the first capture."""
+        main = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            self.step(self.start())
+        main.wait_stream(self.stream)
+        b, m = self.inputs["inits"].shape[0], self.inputs["points"].shape[-2]
+        self.scratch = nn_layout.scratch(self.stream.device, self.stream.cuda_stream, b, m)
+
+    def prepare(self, k: int):
+        """The runner of a chunk of ``k`` iterations (0: the start), captured
+        at its first use."""
+        if k not in self.runs:
+            if not self.capture:
+                self.runs[k] = _Eager(self._body(k))
+            else:
+                with capturing:
+                    if self.scratch is None:
+                        self._warm_up()
+                    self.runs[k] = _Graph(self._body(k), self.stream)
+        return self.runs[k]
+
+    def run(self, k: int) -> GNState:
+        self.prepare(k).replay()
+        return self.state
+
+
+def run(key: Hashable, inputs: Dict[str, torch.Tensor],
+        program: Callable[[Dict[str, torch.Tensor]], Program],
+        max_iterations: int) -> GNState:
+    """The loop of ``program`` on ``inputs`` through the static buffers of
+    ``key``: CUDA graphs on the card (``MODE == "graph"``), the eager runner
+    otherwise.  ``inputs`` holds "inits" (B, 4, 4) and "points" (..., M, 3);
+    ``program(x)`` builds ``(start, step)`` on the dict ``x`` of static
+    buffers.  Returns the final state, cloned out of the buffers.  One loop
+    runs at a time: a key's buffers serve every call of that key."""
+    capture = MODE == "graph"
+    key = (key, capture)
+    with _lock:
+        loop = _entries.get(key)
+        if loop is None:
+            loop = _Loop(inputs, program, capture)
+            loop.load(inputs)
+            # Every chunk this call may need, before any replay; a key whose
+            # capture failed is not kept.
+            for k in (0, *chunk_lengths(max_iterations)):
+                loop.prepare(k)
+            _entries[key] = loop
+        else:
+            loop.load(inputs)
+        state = drive(lambda: loop.run(0), lambda s, k: loop.run(k), max_iterations)
+        return GNState(*(t.clone() for t in state))
+
+
+def captured() -> Tuple[int, int]:
+    """(loop keys, CUDA graphs) captured in this process."""
+    loops = [e for e in _entries.values() if e.capture]
+    return len(loops), sum(len(e.runs) for e in loops)
+
+
+def clear():
+    """Drop every key's buffers and graphs."""
+    with _lock:
+        _entries.clear()

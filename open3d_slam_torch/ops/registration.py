@@ -20,12 +20,15 @@ it, in rank order (``utils.collectives.gather_sum``, the JAX package's
 ``psum`` over ``axis_name``), so every rank takes the same steps and stops at
 the same iteration.
 
-``lax.while_loop`` never returns to the host; a Python loop that reads a
-device flag does, once per read.  Converged elements freeze (T kept, the
-iteration count not advanced), so a few extra iterations after every element
-has converged change nothing: the fused loops read ``done`` once every
-``DONE_CHECK_EVERY`` iterations and give the same poses and iteration counts
-as a check on every iteration, with a quarter of the host syncs.
+The fused loops' iterations on the card, with no ``group``, are replays of
+CUDA graphs (``ops/gn_graph.py``), the counterpart of the JAX package's
+``lax.while_loop``: the start and chunks of ``gn_graph.DONE_CHECK_EVERY``
+iterations, with one counted read of ``done`` between chunks.  Converged
+elements freeze (T kept, the iteration count not advanced), so a few extra
+iterations after every element has converged change nothing, and the poses
+and iteration counts are those of a check on every iteration.  On the CPU and with a
+``group`` the same iteration (``_gn_iteration``) runs eagerly, in the same
+chunks (``gn_graph.drive``).
 """
 from __future__ import annotations
 
@@ -35,14 +38,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from open3d_slam_torch.ops import cuda_gicp, cuda_icp, hashgrid, nn_layout
+from open3d_slam_torch.ops import cuda_gicp, cuda_icp, cuda_solve6, gn_graph, hashgrid
+from open3d_slam_torch.ops import nn_layout
+from open3d_slam_torch.ops.gn_graph import GNState
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils import collectives, se3
-from open3d_slam_torch.utils.device import pull_bool, to_device, to_host
+from open3d_slam_torch.utils.device import to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
 
 _JITTER = 1e-6
-DONE_CHECK_EVERY = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +66,12 @@ class RegistrationResult:
 
 def _solve6(JtJ: torch.Tensor, Jtr: torch.Tensor) -> torch.Tensor:
     """Solve batched 6x6 normal equations with Tikhonov jitter 1e-6 *
-    trace/6, then Cholesky (no error check, so no host sync)."""
+    trace/6, then Cholesky (no error check, so no host sync).  On the card a
+    batch of more than one goes to ``cuda_solve6.solve6``: there the library
+    route is MAGMA's batched solve, which synchronises and cannot be captured
+    into a CUDA graph."""
+    if JtJ.device.type == "cuda" and JtJ.shape[0] > 1:
+        return cuda_solve6.solve6(JtJ, Jtr)
     tr = JtJ.diagonal(dim1=-2, dim2=-1).sum(-1)
     scale = torch.clamp(tr / 6.0, min=1e-12)
     eye = torch.eye(6, dtype=JtJ.dtype, device=JtJ.device)
@@ -123,32 +132,79 @@ def _p2p_step(H: np.ndarray, p_bar: np.ndarray, q_bar: np.ndarray) -> np.ndarray
     return dT
 
 
-def _gauss_newton(stats_eq: Callable, inits: torch.Tensor, max_iterations: int,
-                  relative_fitness: float, relative_rmse: float,
-                  retract: Callable) -> RegistrationResult:
-    """The Gauss-Newton loop of both fused loops: ``stats_eq(T)`` gives
-    (JtJ, Jtr, fitness, rmse) for the batch of poses T, ``retract`` turns a
-    6-vector step into a 4x4 update applied on the left."""
-    dev = inits.device
+def _gn_start(stats_eq: Callable, inits: torch.Tensor) -> GNState:
+    """The loop's first state: the normal equations at the initial poses."""
+    JtJ, Jtr, fit, rmse = stats_eq(inits)
     bsz = inits.shape[0]
-    T = inits
-    JtJ, Jtr, fit, rmse = stats_eq(T)
-    it = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
-    itg = 0
-    while itg < max_iterations:
-        dT = retract(_solve6(JtJ, Jtr))
-        T_new = torch.where(done[:, None, None], T, dT @ T)
-        JtJ, Jtr, fitn, rmsen = stats_eq(T_new)
-        conv = ((fit - fitn).abs() < relative_fitness) & \
-            ((rmse - rmsen).abs() < relative_rmse)
-        it = it + (~done).to(torch.int32)
-        T, fit, rmse, done = T_new, fitn, rmsen, done | conv
-        itg += 1
-        if itg % DONE_CHECK_EVERY == 0 and pull_bool(done.all()):
-            break
-    return RegistrationResult(transformation=T, fitness=fit, inlier_rmse=rmse,
-                              num_iterations=it)
+    return GNState(inits, JtJ, Jtr, fit, rmse,
+                   torch.zeros(bsz, dtype=torch.int32, device=inits.device),
+                   torch.zeros(bsz, dtype=torch.bool, device=inits.device))
+
+
+def _gn_iteration(s: GNState, stats_eq: Callable, retract: Callable,
+                  relative_fitness: float, relative_rmse: float) -> GNState:
+    """One Gauss-Newton iteration: step from the normal equations at T
+    (``retract`` turns the 6-vector into a 4x4 update applied on the left),
+    freeze converged elements, re-evaluate at T_new (``stats_eq(T)`` gives
+    (JtJ, Jtr, fitness, rmse)), stop an element on Open3D's relative
+    fitness/RMSE rule."""
+    dT = retract(_solve6(s.JtJ, s.Jtr))
+    T_new = torch.where(s.done[:, None, None], s.T, dT @ s.T)
+    JtJ, Jtr, fitn, rmsen = stats_eq(T_new)
+    conv = ((s.fit - fitn).abs() < relative_fitness) & \
+        ((s.rmse - rmsen).abs() < relative_rmse)
+    return GNState(T_new, JtJ, Jtr, fitn, rmsen, s.it + (~s.done).to(torch.int32),
+                   s.done | conv)
+
+
+def _gauss_newton(kind: str, inputs: dict, make_stats_eq: Callable,
+                  layout: nn_layout.SweepLayout, max_dist, max_iterations: int,
+                  relative_fitness: float, relative_rmse: float, retract: Callable,
+                  group=None) -> RegistrationResult:
+    """The Gauss-Newton loop of both fused loops.  ``inputs`` holds the
+    loop's tensors ("inits", "points", ..., "r2"), ``layout`` the sweep's;
+    ``make_stats_eq(x, layout_of)`` builds ``stats_eq`` on a dict of them
+    with the layout ``layout_of()``.  On the card without ``group`` the
+    iterations are CUDA-graph replays on static copies of the inputs
+    (``gn_graph.run``), else they run eagerly on the inputs themselves."""
+    def program(x, layout_of):
+        stats_eq = make_stats_eq(x, layout_of)
+        return (lambda: _gn_start(stats_eq, x["inits"]),
+                lambda s: _gn_iteration(s, stats_eq, retract, relative_fitness,
+                                        relative_rmse))
+
+    dev = inputs["inits"].device
+    if group is None and gn_graph.uses_static_buffers(dev):
+        inputs = {**inputs, **_layout_inputs(layout)}
+        b, m = inputs["inits"].shape[0], inputs["points"].shape[-2]
+        n_tiles = layout.target.boxes.shape[-2]
+        splits = (nn_layout.plan_splits(-(-m // nn_layout.GROUP), b, n_tiles, dev)
+                  if dev.type == "cuda" else 0)
+        key = (kind, retract.__name__, dev, float(max_dist), relative_fitness, relative_rmse,
+               n_tiles, splits, tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        state = gn_graph.run(key, inputs, lambda x: program(x, lambda: _static_layout(x)),
+                             max_iterations)
+    else:
+        start, step = program(inputs, lambda: layout)
+        state = gn_graph.drive(start, lambda s, k: gn_graph.steps(step, s, k),
+                               max_iterations)
+    return RegistrationResult(transformation=state.T, fitness=state.fit,
+                              inlier_rmse=state.rmse, num_iterations=state.it)
+
+
+def _layout_inputs(layout: nn_layout.SweepLayout) -> dict:
+    t = layout.target
+    return {"t_pts": t.pts, "t_boxes": t.boxes, "t_order": t.order,
+            "query_order": layout.query_order}
+
+
+def _static_layout(x: dict) -> nn_layout.SweepLayout:
+    """The sweep layout held in the static buffers ``x``, bound to their
+    target coordinates and validity as they are now (a call's copy-in
+    changes them together)."""
+    coords = x["td"] if "td" in x else x["t_t"]
+    target = nn_layout.TargetLayout(x["t_pts"], x["t_boxes"], x["t_order"])
+    return nn_layout.SweepLayout(nn_layout.bind(target, coords, x["tv"]), x["query_order"])
 
 
 def _stats(out: torch.Tensor, n_src: torch.Tensor, group=None):
@@ -182,16 +238,24 @@ def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
     (``nn_layout.SweepLayout``) holds for every iteration.  With ``group``
     the points are this rank's shard and ``n_src`` the valid points of the
     whole cloud."""
-    r2 = _r2(max_dist, points.device)
+    b, m = inits.shape[0], points.shape[-2]
+    if layout is None:
+        layout = nn_layout.layout_for(points.expand(b, m, 3), maskf, td, tv)
+    nn_layout.check_layout(layout, b, m, td.shape[-1], points.device, td, tv)
 
-    def stats_eq(T):
-        pts = se3.transform_points(T, points).contiguous()
-        qc = cuda_gicp.rotate_cov6(T[..., :3, :3], qcov6).contiguous()
-        return _stats(cuda_gicp.gicp_normal_eq(pts, maskf, qc, td, tv, r2, None, layout),
-                      n_src, group)
+    def make_stats_eq(x, layout_of):
+        def stats_eq(T):
+            pts = se3.transform_points(T, x["points"]).contiguous()
+            qc = cuda_gicp.rotate_cov6(T[..., :3, :3], x["qcov6"]).contiguous()
+            out = cuda_gicp.gicp_normal_eq(pts, x["maskf"], qc, x["td"], x["tv"], x["r2"],
+                                           None, layout_of())
+            return _stats(out, x["n_src"], group)
+        return stats_eq
 
-    return _gauss_newton(stats_eq, inits, max_iterations, relative_fitness,
-                         relative_rmse, se3.se3_exp)
+    inputs = dict(inits=inits.contiguous(), points=points, maskf=maskf, n_src=n_src,
+                  qcov6=qcov6, td=td, tv=tv, r2=_r2(max_dist, points.device))
+    return _gauss_newton("gicp", inputs, make_stats_eq, layout, max_dist, max_iterations,
+                         relative_fitness, relative_rmse, se3.se3_exp, group)
 
 
 def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dist,
@@ -205,16 +269,24 @@ def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dis
     (``nn_layout.SweepLayout``) holds for every iteration.  With ``group``
     the points are this rank's shard and ``n_src`` the valid points of the
     whole cloud."""
-    r2 = _r2(max_dist, inits.device)
+    b, m = inits.shape[0], points.shape[-2]
+    if layout is None:
+        layout = nn_layout.layout_for(points.expand(b, m, 3), maskf, t_t, tv)
+    nn_layout.check_layout(layout, b, m, t_t.shape[-1], points.device, t_t, tv)
 
-    def stats_eq(T):
-        pts = se3.transform_points(T, points).contiguous()
-        return _stats(cuda_icp.p2l_normal_eq(pts, maskf, t_t, tn_t, tc, tv, r2, layout),
-                      n_src, group)
+    def make_stats_eq(x, layout_of):
+        def stats_eq(T):
+            pts = se3.transform_points(T, x["points"]).contiguous()
+            out = cuda_icp.p2l_normal_eq(pts, x["maskf"], x["t_t"], x["tn_t"], x["tc"],
+                                         x["tv"], x["r2"], layout_of())
+            return _stats(out, x["n_src"], group)
+        return stats_eq
 
-    return _gauss_newton(stats_eq, inits, max_iterations, relative_fitness,
-                         relative_rmse,
-                         se3.se3_exp if use_exp_retraction else _euler_xyz_transform)
+    inputs = dict(inits=inits.contiguous(), points=points, maskf=maskf, n_src=n_src,
+                  t_t=t_t, tn_t=tn_t, tc=tc, tv=tv, r2=_r2(max_dist, inits.device))
+    return _gauss_newton("p2l", inputs, make_stats_eq, layout, max_dist, max_iterations,
+                         relative_fitness, relative_rmse,
+                         se3.se3_exp if use_exp_retraction else _euler_xyz_transform, group)
 
 
 def point_to_plane_target(grid: HashGrid) -> tuple:

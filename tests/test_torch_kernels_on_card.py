@@ -715,3 +715,235 @@ def test_one_rank_nccl_group_is_bit_equal_to_no_group_on_card(cuda_device, rng):
         assert ("gicp_normal_eq", (1, 1024, 4096)) in launched
     finally:
         dist.destroy_process_group()
+
+
+def _captured(fn, dev):
+    """``fn`` run eagerly, then captured into a CUDA graph on a side stream
+    (after a warm-up there) and replayed: (eager output, replayed output)."""
+    want = fn()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return want, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4, 128, 1024])
+def test_gn_iteration_math_captures_bit_equal_on_card(cuda_device, rng, batch):
+    """The small operations of a Gauss-Newton iteration around K1/K4 (the
+    jittered 6x6 Cholesky solve, both retractions, the frozen update, the
+    point transform and the covariance rotation) capture into a CUDA graph
+    and replay to the eager result's bits."""
+    from open3d_slam_torch.ops import registration as treg
+    from open3d_slam_torch.utils import se3
+    A = rng.normal(size=(batch, 6, 12)).astype(np.float32)
+    JtJ = torch.from_numpy(A @ A.transpose(0, 2, 1)).to(cuda_device)
+    Jtr = torch.from_numpy(rng.normal(size=(batch, 6)).astype(np.float32)).to(cuda_device)
+    T = se3.se3_exp(torch.from_numpy(0.1 * rng.normal(size=(batch, 6)).astype(
+        np.float32)).to(cuda_device)).contiguous()
+    done = torch.from_numpy(rng.uniform(size=batch) < 0.3).to(cuda_device)
+    pts = torch.from_numpy(rng.normal(size=(batch, 2048, 3)).astype(np.float32)).to(cuda_device)
+    cov6 = torch.from_numpy(rng.normal(size=(batch, 2048, 6)).astype(np.float32)).to(cuda_device)
+
+    def step():
+        delta = treg._solve6(JtJ, Jtr)
+        outs = [delta]
+        for retract in (se3.se3_exp, treg._euler_xyz_transform):
+            T_new = torch.where(done[:, None, None], T, retract(delta) @ T)
+            outs += [T_new, se3.transform_points(T_new, pts).contiguous(),
+                     tg.rotate_cov6(T_new[..., :3, :3], cov6).contiguous()]
+        return outs
+
+    want, got = _captured(step, cuda_device)
+    assert all(torch.equal(w, g) for w, g in zip(want, got))
+
+
+def _loop_problem(rng, dev, kind, batch, m, n, max_iterations):
+    """A fused GN loop (``registration._icp_gicp_fused_batch`` or
+    ``_icp_p2l_fused_batch``) at B = batch, M = m, N = n: one shared target
+    at B = 1, else one per element (four distinct ones, tiled), sources
+    drawn from their target and moved off it.  Returns ``run()``."""
+    from open3d_slam_torch.ops import registration as treg
+    from open3d_slam_torch.utils import se3
+    kinds = min(batch, 4)
+    clouds = []
+    for _ in range(kinds):
+        pts = _planes(rng, n)
+        mask = np.ones(n, bool)
+        mask[-(n // 50):] = False
+        pc = tn.estimate_normals(tpc.PointCloud(torch.from_numpy(pts).to(dev),
+                                                torch.from_numpy(mask).to(dev)), 1.0, max_nn=12)
+        clouds.append((pc.points, pc.mask, pc.normals, tn.covariances_from_normals(pc)))
+    pick = [clouds[i % kinds] for i in range(batch)]
+    tp, tm, tnrm, tcov = (torch.stack(a) for a in zip(*pick))
+    valid = int(clouds[0][1].sum())
+    src = [c[0][torch.from_numpy(rng.choice(valid, m, replace=m > valid)).to(dev)]
+           for c in pick]
+    q = (torch.stack(src) + torch.from_numpy(
+        rng.normal(scale=0.03, size=(batch, m, 3)).astype(np.float32)).to(dev)).contiguous()
+    qv = torch.from_numpy(rng.uniform(size=(batch, m)) > 0.05).to(dev)
+    xi = torch.from_numpy(np.concatenate([rng.normal(scale=0.02, size=(batch, 3)),
+                                          rng.normal(scale=0.15, size=(batch, 3))], 1)
+                          .astype(np.float32)).to(dev)
+    inits = se3.se3_exp(xi).contiguous()
+    if batch == 1:
+        tp, tm, tnrm, tcov, qmask = tp[0], tm[0], tnrm[0], tcov[0], qv[0]
+    else:
+        qmask = qv
+    maskf = qmask.to(torch.float32)[..., None].contiguous()
+    n_src = qv.to(torch.float32).sum(-1)
+    order = nn_layout.query_order(q if batch > 1 else q[0], qmask)
+    if kind == "gicp":
+        up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(m, 3)
+        qcov6 = torch.stack([tg.cov6_from_full(tn.covariances_from_normals(
+            tpc.PointCloud(s, v, up))) for s, v in zip(q, qv)]).contiguous()
+        td, tv, t_lay = tg.prepare_target(tp, tcov, tm)
+        layout = nn_layout.SweepLayout(t_lay, order)
+        return lambda: treg._icp_gicp_fused_batch(q, maskf, n_src, qcov6, td, tv, inits, 0.5,
+                                                  max_iterations, 1e-6, 1e-6, layout)
+    t_t, tn_t, tc, tv, t_lay = ti.prepare_target(tp, tnrm, tm)
+    layout = nn_layout.SweepLayout(t_lay, order)
+    return lambda: treg._icp_p2l_fused_batch(q, maskf, n_src, t_t, tn_t, tc, tv, inits, 0.5,
+                                             max_iterations, 1e-6, 1e-6, False, layout)
+
+
+def _counted(run):
+    """(result, launches, counted host pulls) of one ``run()``."""
+    from collections import Counter
+    from open3d_slam_torch.utils import device as devmod
+    before, syncs = Counter(cuda_build.launches), devmod.host_syncs.count
+    res = run()
+    torch.cuda.synchronize()
+    return (res, Counter(cuda_build.launches) - before, devmod.host_syncs.count - syncs)
+
+
+def _same_result(a, b):
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in
+               ("transformation", "fitness", "inlier_rmse", "num_iterations"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gicp", "p2l"])
+@pytest.mark.parametrize("batch,m,n", [(1, 16384, 16384), (1, 4096, 65536), (128, 1024, 2048)])
+def test_graphed_loop_equals_eager_loop_on_card(cuda_device, rng, monkeypatch, kind, batch,
+                                                m, n):
+    """The fused loop replayed as CUDA graphs gives the eager loop's poses,
+    fitness, RMSE and iteration counts bit for bit, with the same kernel
+    launches and ``done`` reads once captured; the first call adds its
+    warm-up's launches (one start, one step); a call with another remainder
+    captures that chunk alone; the kernels leave the side stream's scratch
+    as they found it."""
+    from open3d_slam_torch.ops import gn_graph
+    gn_graph.clear()
+    kernel = "gicp_normal_eq" if kind == "gicp" else "p2l_normal_eq"
+    for iters in (50, 7):
+        run = _loop_problem(rng, cuda_device, kind, batch, m, n, iters)
+        monkeypatch.setattr(gn_graph, "MODE", "eager")
+        want, want_n, want_syncs = _counted(run)
+        monkeypatch.setattr(gn_graph, "MODE", "graph")
+        first, first_n, _ = _counted(run)
+        got, got_n, got_syncs = _counted(run)
+        assert _same_result(first, want) and _same_result(got, want)
+        assert got_n == want_n and got_syncs == want_syncs
+        warm = {(kernel, (batch, m, n)): 2}
+        if batch > 1:
+            warm[("solve6", (batch,))] = 1
+        assert dict(first_n - want_n) == (warm if iters == 50 else {})
+    assert float(want.fitness.min()) > 0.5
+    dev = want.transformation.device          # cuda:<index>, as the loops key it
+    keys, tickets = nn_layout._scratch[(dev, gn_graph._side_stream(dev).cuda_stream)]
+    assert bool((keys == -1).all()) and bool((tickets == 0).all())
+    gn_graph.clear()
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(cuda_device, rng, monkeypatch):
+    """A capture that CUDA refuses (a host read inside the iteration)
+    raises, keeps no half-made key, and falls back to nothing; the next
+    call captures anew and equals the eager loop."""
+    from open3d_slam_torch.ops import gn_graph, registration as treg
+    gn_graph.clear()
+    run = _loop_problem(rng, cuda_device, "p2l", 1, 4096, 16384, 50)
+    solve6 = treg._solve6
+
+    def reads_the_host(JtJ, Jtr):
+        float(JtJ.sum())
+        return solve6(JtJ, Jtr)
+
+    monkeypatch.setattr(treg, "_solve6", reads_the_host)
+    with pytest.raises(RuntimeError):
+        run()
+    assert gn_graph.captured() == (0, 0)
+    monkeypatch.setattr(treg, "_solve6", solve6)
+    monkeypatch.setattr(gn_graph, "MODE", "eager")
+    want = run()
+    monkeypatch.setattr(gn_graph, "MODE", "graph")
+    assert _same_result(run(), want)
+    assert gn_graph.captured() == (1, 3)
+    gn_graph.clear()
+
+
+@pytest.mark.cuda
+def test_capture_on_a_worker_thread_on_card(cuda_device, rng, monkeypatch):
+    """The online driver's shape: the loop captured and replayed on a worker
+    thread while this thread copies data to the card, outside the worker's
+    captures (``gn_graph.capturing``, as ``AsyncSlamDriver.add_range_scan``
+    holds it), equal to the eager loop."""
+    import threading
+    import time
+    from open3d_slam_torch.ops import gn_graph
+    from open3d_slam_torch.utils.device import to_device
+    gn_graph.clear()
+    run = _loop_problem(rng, cuda_device, "gicp", 1, 4096, 65536, 50)
+    monkeypatch.setattr(gn_graph, "MODE", "eager")
+    want = run()
+    monkeypatch.setattr(gn_graph, "MODE", "graph")
+    out = {}
+
+    def worker():
+        try:
+            out["res"] = [run() for _ in range(3)]
+        except Exception as e:       # raised again below
+            out["error"] = e
+
+    t = threading.Thread(target=worker)
+    t.start()
+    scan = rng.normal(size=(32768, 3)).astype(np.float32)
+    deadline = time.monotonic() + 120.0
+    while t.is_alive() and time.monotonic() < deadline:
+        with gn_graph.capturing:
+            to_device(scan, cuda_device).sum()
+    t.join(timeout=10.0)
+    assert not t.is_alive(), "the worker did not finish within its time"
+    assert "error" not in out, out.get("error")
+    assert all(_same_result(r, want) for r in out["res"])
+    gn_graph.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 128, 1024])
+def test_solve6_kernel_equals_plain_on_card(cuda_device, rng, batch):
+    """The 6x6 solve's kernel bit-equal to its plain version on the card,
+    on the strided views a fused kernel's output gives; within float32
+    rounding of the library route (``cholesky_ex`` + ``cholesky_solve``)."""
+    from open3d_slam_torch.ops import cuda_solve6
+    A = rng.normal(size=(batch, 6, 12)).astype(np.float32)
+    out = torch.zeros((batch, 8, 128), device=cuda_device)
+    out[:, :6, :6] = torch.from_numpy(A @ A.transpose(0, 2, 1)).to(cuda_device)
+    out[:, :6, 6] = torch.from_numpy(rng.normal(size=(batch, 6)).astype(np.float32)).to(
+        cuda_device)
+    JtJ, Jtr, _, _ = tg.unpack(out)
+    got = cuda_solve6.solve6(JtJ, Jtr)
+    assert torch.equal(got, cuda_solve6.solve6_plain(JtJ, Jtr))
+    L, _ = torch.linalg.cholesky_ex(JtJ.contiguous() + 1e-6 * torch.diagonal(
+        JtJ, dim1=-2, dim2=-1).sum(-1)[:, None, None] / 6.0 * torch.eye(6, device=cuda_device))
+    lib = torch.cholesky_solve(-Jtr[..., None], L)[..., 0]
+    scale = lib.abs().amax(-1, keepdim=True)
+    assert float(((got - lib).abs() / scale).max()) < 1e-3
