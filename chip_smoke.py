@@ -52,9 +52,17 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
   7. global localization at the width of the JAX package's config 4
      (``bench.py``'s ``bench_multistart_localization``): 1024 hypotheses on
      a 32768-point structured scene, five planted 8192-point scans, each
-     localized within 0.5 m and 5 degrees;
+     localized within 0.5 m and 5 degrees, with the registration loops
+     eager and graphed in turns, three times each, every pose bit-equal
+     across runs and modes; per mode the p50, the mid stage's ms (the
+     point-to-point loop), its counted pulls and its runtime calls per
+     iteration (``torch.profiler``); the launches are the graphed turns',
+     and the eager turns' must equal them;
   8. replays the first scans of step 3 with point-to-plane ICP for both
      registrations (the ``SlamParameters`` default) and checks the ATE;
+  8b. replays them with point-to-point ICP for both registrations, graphed
+     and eager (bit-equal), and holds the ATE to a limit taken from a
+     witness: the same replay with the loop's earlier host SVD;
   8a. the scale-out layer (``parallel/``) in a 1-rank NCCL group (the card
      is one H100, and NCCL refuses two ranks on one device): the JAX
      package's ``bench_batched_icp`` batch (128 scan pairs, 1024-point
@@ -73,12 +81,15 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      callers' entry, held by their verdict) and ungated (bit-equal), with
      ``torch.cdist(...).argmin(1)`` timed beside it; the batched 6x6 solve
      of the loops (``cuda_solve6``, at B > 1) bit-equal to its plain version;
+     the point-to-point loop's Kabsch step (``cuda_p2p``) within its
+     tolerance of its plain version, the library chain it replaced, with
+     the synchronising operations of one call of each;
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
-Steps 4a, 5a, 5b, 6 to 8 and 8a each set every launch count to 0 just
-before and read it just after, and fail if a kernel of their path did not
-run.  A launch inside a CUDA graph counts at each replay of the graph.
+Steps 4a, 5a, 5b, 6 to 8b and 8a each set every launch count to 0 just
+before and read it just after (step 7 before and after each turn), and fail
+if a kernel of their path did not run.  A launch inside a CUDA graph counts at each replay of the graph.
 
 It exits non-zero, and prints no result line, on any failure, without a
 card, or when run outside the repository.
@@ -114,7 +125,19 @@ GLOBAL_HYPOTHESES = 1024    # bench.py's config 4
 GLOBAL_MAP, GLOBAL_SCAN = 32768, 8192
 GLOBAL_SEEDS = (101, 102, 103, 104, 105)   # seed 100 warms up
 GLOBAL_TOL_M, GLOBAL_TOL_DEG = 0.5, 5.0
+GLOBAL_AB_REPEATS = 3       # step 7: eager and graphed turns each
 P2L_SCANS = 100
+# Step 8b: point-to-point tracking over step 3's first scans.  Its ATE limit
+# is this factor times a witness's ATE plus this margin.  The witness is the
+# same replay through the loop's earlier code, which took the Kabsch step's
+# SVD on the host (LAPACK, float32) and shares no loop code with this one:
+# commit 3b5fb8e's `python -m open3d_slam_torch.cli.mapping --sim
+# vlp16_yard_circle --max-scans 105` with velodyne_puck16.yaml, loop closures
+# off and PointToPointIcp for both registrations, on an H100 80GB HBM3
+# (700 W).  Point-to-point ICP drifts metres on these 16-ring scans.
+P2P_SCANS = 100
+P2P_WITNESS_ATE_M = 4.956506018874437
+P2P_ATE_FACTOR, P2P_ATE_MARGIN_M = 1.5, 0.02
 # Step 8a: bench.py's bench_batched_icp (batch, source, target points,
 # voxel, correspondence distance, iterations easy / hard) and the
 # scan-to-map shapes of __graft_entry__.py's stage 5.
@@ -245,6 +268,7 @@ def rebound(layout):
 GICP_TOL = 1e-5     # Gram entry vs sqrt(|G_ii||G_jj|); d2 sum vs itself
 P2L_TOL = 1e-5      # the same for K4
 MOMENTS_TOL = 1e-5  # moment vs the sum of |feature| over its neighbours
+P2P_TOL = 1e-5      # Kabsch step: R entries; t relative to 1 + |p_bar|
 
 
 def swept_pairs(q_pts, q_mask_f, layout, r2):
@@ -405,6 +429,7 @@ def knn_entry(cuda_knn, shape, n_launch, args, kwargs):
     import torch
     from open3d_slam_torch.ops import hashgrid, nn_layout
     bound = inspect.signature(cuda_knn.nn_argmin_within).bind(*args, **kwargs)
+    bound.arguments["layout"] = rebound(bound.arguments["layout"])
     queries, qmask, layout, r = bound.args
     b, m, n = shape
     got_i, got_e = cuda_knn.nn_argmin_within(*bound.args)
@@ -536,6 +561,46 @@ def solve6_entry(cuda_solve6, shape, n_launch, args, kwargs):
                    "replaces": "open3d_slam_tpu/ops/registration.py:85",
                    "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def p2p_entry(cuda_p2p, shape, n_launch, args, kwargs):
+    """The Kabsch step of the point-to-point loop (``cuda_p2p.p2p_step``) at
+    one shape the runs gave it: R within ``P2P_TOL`` of the plain version
+    (the moments, ``torch.linalg.svd`` and ``torch.linalg.det`` on the card:
+    the library chain the loop ran before, with its SVD on the host), t
+    within ``P2P_TOL`` (1 + |p_bar|); the synchronising operations torch's
+    sync debug mode reports in one call of each."""
+    import torch
+    pts, q, w = args
+    got = cuda_p2p.p2p_step(pts, q, w)
+    want = cuda_p2p.p2p_step_plain(pts, q, w)
+    _, p_bar, _ = cuda_p2p.p2p_moments(pts, q, w)
+    torch.cuda.synchronize()
+    r_err = float((got[:, :3, :3] - want[:, :3, :3]).abs().max())
+    t_rel = float(((got[:, :3, 3] - want[:, :3, 3]).abs().amax(-1)
+                   / (1.0 + p_bar.norm(dim=-1))).max())
+    err = float((got - want).abs().max())
+    _, kernel_syncs = DenseStageProbe.syncs_in(lambda: cuda_p2p.p2p_step(pts, q, w))
+    _, plain_syncs = DenseStageProbe.syncs_in(lambda: cuda_p2p.p2p_step_plain(pts, q, w))
+    ok = r_err <= P2P_TOL and t_rel <= P2P_TOL and not kernel_syncs
+    ms = time_ms(lambda: cuda_p2p.p2p_step(pts, q, w), 20)
+    plain = time_ms(lambda: cuda_p2p.p2p_step_plain(pts, q, w), 3)
+    b, m = shape
+    inliers = int(w.sum().item())
+    # ~31 float operations an inlier (7 sums, then 6 differences and 9
+    # products and sums); ~2000 float64 ones a hypothesis's SVD, counted at
+    # the float32 rate (a lower bound).  pts, q and w read once, dT written.
+    b_ms, b_by = bound_ms(b * m * 25 + b * 64, 31.0 * inliers + 2000.0 * b)
+    print(f"p2p_step {b}x{m}: R err {r_err:.3e}, t err {t_rel:.3e} of 1 + |p_bar| (tol "
+          f"{P2P_TOL:g} each), max abs err {err:.3e}; {ms:.4f} ms vs plain (moments + "
+          f"torch.linalg.svd + det) {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {inliers} "
+          f"inliers); synchronising operations in one call: kernel {len(kernel_syncs)}, "
+          f"plain {len(plain_syncs)}", flush=True)
+    return ok, {"name": f"p2p_step[{b}x{m}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/p2p_step.cu",
+                "replaces": "open3d_slam_tpu/ops/registration.py:105",
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def poses_sha1(poses) -> str:
@@ -777,10 +842,56 @@ def cli_localization(folder, poses, cuda_build, cfg, localization):
     return ok and not missing, counts
 
 
-def global_localization(cuda_build, cfg, datasets, pclib, multi_start):
-    """Step 7: config 4 of the JAX package's bench at its own sizes.  The
-    warm-up pose runs before the counts are reset.  Returns (ok, counts)."""
+class MidProbe:
+    """Stands in for ``registration.batched_icp_point_to_point`` (the funnel's
+    mid stage) during step 7: per call, the counted host pulls, the Kabsch
+    step's launches (one an iteration run, graphed or eager) and, while
+    ``profile`` is set, the runtime calls that put work on the card
+    (``host_launch_calls``)."""
+
+    def __init__(self, reg_ops, cuda_build, devmod):
+        self.reg_ops, self.cuda_build, self.devmod = reg_ops, cuda_build, devmod
+        self.wrapped = reg_ops.batched_icp_point_to_point
+        self.pulls, self.iterations, self.calls = [], [], []
+        self.profile = False
+
+    def __call__(self, *args, **kwargs):
+        syncs = self.devmod.host_syncs.count
+        before = self.cuda_build.launch_total("p2p_step")
+        if self.profile:
+            out = {}
+            launched, _ = host_launch_calls(
+                lambda: out.setdefault("res", self.wrapped(*args, **kwargs)))
+            self.calls.append(sum((launched or {}).values()))
+            res = out["res"]
+        else:
+            res = self.wrapped(*args, **kwargs)
+        self.pulls.append(self.devmod.host_syncs.count - syncs)
+        self.iterations.append(self.cuda_build.launch_total("p2p_step") - before)
+        return res
+
+    def install(self):
+        self.reg_ops.batched_icp_point_to_point = self
+
+    def remove(self):
+        self.reg_ops.batched_icp_point_to_point = self.wrapped
+
+
+def global_localization(cuda_build, cfg, datasets, pclib, multi_start, gn_graph, devmod,
+                        name_power):
+    """Step 7: config 4 of the JAX package's bench at its own sizes, with the
+    registration loops eager (``gn_graph.MODE = "eager"``) and graphed in
+    turns, ``GLOBAL_AB_REPEATS`` each: every planted pose found in every run,
+    each seed's pose bit-equal across runs and modes.  Per mode: the p50, the
+    mid stage's ms (one synchronised run a turn), its counted pulls and its
+    runtime calls per iteration (``torch.profiler``).  The warm-up pose runs
+    in each mode first.  The launch counts are set to 0 just before each
+    turn and read just after it; the graphed turns' are the main path's, and
+    the eager turns' must equal them.  Returns (ok, the graphed turns'
+    counts)."""
+    import collections
     import numpy as np
+    from open3d_slam_torch.ops import registration as reg_ops
     rng = np.random.default_rng(4)
     map_pts = datasets.structured_scene(rng, GLOBAL_MAP)
     params = cfg.SlamParameters()
@@ -798,34 +909,136 @@ def global_localization(cuda_build, cfg, datasets, pclib, multi_start):
                                              profile=profile)
         return time.perf_counter() - t0, T, T_true, fit
 
-    localize(100)
-    cuda_build.launches.clear()
-    times, errs, found = [], [], []
-    for seed in GLOBAL_SEEDS:
-        dt, T, T_true, fit = localize(seed)
-        times.append(dt)
-        found.append(T)
-        errs.append(pose_error(T_true, T))
-        print(f"  planted pose {seed}: {dt * 1e3:.2f} ms, fitness {fit:.4f}, "
-              f"t_err {errs[-1][0]:.4f} m, rot err {errs[-1][1]:.4f} deg")
-    counts = dict(cuda_build.launches)
-    stages = {}
-    localize(GLOBAL_SEEDS[0], profile=stages)
-    p50 = float(np.median(times))
-    good = sum(e[0] < GLOBAL_TOL_M and e[1] < GLOBAL_TOL_DEG for e in errs)
-    print(f"global localization: {good} of {len(errs)} planted poses within "
-          f"{GLOBAL_TOL_M} m and {GLOBAL_TOL_DEG} deg, {GLOBAL_HYPOTHESES} "
-          f"hypotheses on {GLOBAL_MAP} map points, per-localization p50 "
-          f"{p50 * 1e3:.2f} ms, {GLOBAL_HYPOTHESES / p50:.1f} hypotheses/s, poses sha1 "
-          f"{poses_sha1(found)}; stage "
-          f"ms (one synchronised run) {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
-          f"launches {json.dumps(shape_counts(counts))}", flush=True)
+    modes = ("eager", "graph")
+    probe = MidProbe(reg_ops, cuda_build, devmod)
+    probe.install()
+    p50 = {m: [] for m in modes}
+    stage_ms = {m: [] for m in modes}
+    pulls = {m: [] for m in modes}
+    calls = {}
+    found = {m: [] for m in modes}
+    launched = {m: collections.Counter() for m in modes}
+    poses = {}
+    ok = True
+    try:
+        for mode in modes:              # warm: builds, the graphs' capture
+            gn_graph.MODE = mode
+            localize(100)
+        for _ in range(GLOBAL_AB_REPEATS):
+            for mode in modes:
+                gn_graph.MODE = mode
+                start = len(probe.pulls)
+                times, good = [], 0
+                cuda_build.launches.clear()
+                for seed in GLOBAL_SEEDS:
+                    dt, T, T_true, fit = localize(seed)
+                    times.append(dt)
+                    poses.setdefault(seed, []).append(T)
+                    e = pose_error(T_true, T)
+                    good += e[0] < GLOBAL_TOL_M and e[1] < GLOBAL_TOL_DEG
+                    if len(poses[seed]) == 1:
+                        print(f"  planted pose {seed}: {dt * 1e3:.2f} ms, fitness {fit:.4f}, "
+                              f"t_err {e[0]:.4f} m, rot err {e[1]:.4f} deg")
+                launched[mode].update(cuda_build.launches)
+                p50[mode].append(float(np.median(times)) * 1e3)
+                found[mode].append(good)
+                pulls[mode] += probe.pulls[start:]
+        for _ in range(GLOBAL_AB_REPEATS):
+            for mode in modes:
+                gn_graph.MODE = mode
+                stages = {}
+                localize(GLOBAL_SEEDS[0], profile=stages)
+                stage_ms[mode].append(stages)
+        for mode in modes:
+            gn_graph.MODE = mode
+            start = len(probe.calls)
+            probe.profile = True
+            localize(GLOBAL_SEEDS[0])
+            probe.profile = False
+            calls[mode] = (probe.calls[start], probe.iterations[-1])
+    finally:
+        gn_graph.MODE = "graph"
+        probe.remove()
+    same = all(all(np.array_equal(T, ts[0]) for T in ts) for ts in poses.values())
+    first = [poses[seed][0] for seed in GLOBAL_SEEDS]
+    counts = dict(launched["graph"])
+    same_counts = launched["eager"] == launched["graph"]
+    print(f"global localization: {GLOBAL_HYPOTHESES} hypotheses on {GLOBAL_MAP} map points, "
+          f"loops eager and graphed in turns ({GLOBAL_AB_REPEATS} each): planted poses found "
+          f"within {GLOBAL_TOL_M} m and {GLOBAL_TOL_DEG} deg eager {found['eager']}, graphed "
+          f"{found['graph']} of {len(GLOBAL_SEEDS)}; every seed's pose bit-equal in every run "
+          f"{same}; poses sha1 {poses_sha1(first)}; launches of the eager turns equal to the "
+          f"graphed turns' {same_counts}; {name_power}", flush=True)
+    for mode in modes:
+        launched, iters = calls[mode]
+        mid = [st["mid"] for st in stage_ms[mode]]
+        split = {k: round(float(np.median([st[k] for st in stage_ms[mode]])), 3)
+                 for k in stage_ms[mode][0]}
+        print(f"  {mode}: per-localization p50 {[round(x, 3) for x in p50[mode]]} ms (median "
+              f"{np.median(p50[mode]):.3f}, {GLOBAL_HYPOTHESES / np.median(p50[mode]) * 1e3:.1f} "
+              f"hypotheses/s); mid stage {[round(x, 3) for x in mid]} ms (one synchronised run "
+              f"a turn; each stage's median {json.dumps(split)}); counted pulls a mid call max "
+              f"{max(pulls[mode])} mean {np.mean(pulls[mode]):.2f}; runtime calls a mid "
+              f"iteration {launched / max(iters, 1):.2f} ({launched} over {iters} iterations "
+              f"run)", flush=True)
+    print(f"  launches, graphed turns ({GLOBAL_AB_REPEATS * len(GLOBAL_SEEDS)} localizations): "
+          f"{json.dumps(shape_counts(counts))}", flush=True)
+    if not same_counts:
+        print(f"  launches, eager turns: {json.dumps(shape_counts(launched['eager']))}",
+              file=sys.stderr)
     missing = missing_kernels(cuda_build, counts,
                               ("p2l_normal_eq", "nn_argmin_within", "kth_neighbor_d2_within",
-                               "radius_moments_at"))
+                               "radius_moments_at", "p2p_step"))
     if missing:
         print(f"global localization never launched {missing}", file=sys.stderr)
-    return good == len(errs) and not missing, counts
+    want = [len(GLOBAL_SEEDS)] * GLOBAL_AB_REPEATS
+    ok = same and same_counts and found["eager"] == want and found["graph"] == want \
+        and not missing
+    return ok, counts
+
+
+def p2p_tracking(params, seq, scans, cuda_build, devmod, evaluation, gn_graph, SlamWrapper,
+                 name_power):
+    """Step 8b: step 3's replay over its first ``P2P_SCANS`` scans with
+    PointToPointIcp for both registrations, the loops graphed and eager (one
+    run each, counts set to 0 before each), bit-equal, and the ATE within
+    ``P2P_ATE_FACTOR`` times the witness's (``P2P_WITNESS_ATE_M``) plus
+    ``P2P_ATE_MARGIN_M``.  Returns (ok, the graphed run's counts)."""
+    import copy
+    import numpy as np
+    import torch
+    p2p = copy.deepcopy(params)
+    p2p.odometry.scan_matcher.reg_type = "PointToPointIcp"
+    p2p.mapper.scan_matcher.scan_to_map_reg_type = "PointToPointIcp"
+    runs = {}
+    try:
+        for mode in ("graph", "eager"):
+            gn_graph.MODE = mode
+            slam = SlamWrapper(p2p, device="cuda")
+            slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+            torch.cuda.synchronize()
+            per_scan_ms, _, key, syncs = replay(slam, scans[:P2P_SCANS], cuda_build, devmod)
+            poses, ate, _ = check_trajectory(slam, seq, P2P_SCANS, evaluation)
+            runs[mode] = (float(np.median(per_scan_ms)), key, syncs, poses_sha1(poses), ate.rmse)
+            del slam
+    finally:
+        gn_graph.MODE = "graph"
+    limit = P2P_ATE_FACTOR * P2P_WITNESS_ATE_M + P2P_ATE_MARGIN_M
+    same = runs["graph"][1:4] == runs["eager"][1:4]
+    for mode, (p50, key, syncs, digest, ate) in runs.items():
+        print(f"point-to-point tracking ({mode}): {P2P_SCANS} scans, per-scan p50 {p50:.2f} "
+              f"ms, host syncs {syncs / P2P_SCANS:.2f} per scan, poses sha1 {digest}, ATE rmse "
+              f"{ate:.4f} m; launches {json.dumps(shape_counts(key))}", flush=True)
+    counts = runs["graph"][1]
+    print(f"point-to-point tracking: graphed bit-equal to eager (poses, launches, host syncs) "
+          f"{same}; ATE {runs['graph'][4]:.4f} m, limit {limit:.4f} m ({P2P_ATE_FACTOR:g} x "
+          f"the host-SVD witness's {P2P_WITNESS_ATE_M:.4f} m + {P2P_ATE_MARGIN_M:g} m); "
+          f"{name_power}",
+          flush=True)
+    missing = missing_kernels(cuda_build, counts, ("nn_argmin_within", "p2p_step"))
+    if missing:
+        print(f"point-to-point tracking never launched {missing}", file=sys.stderr)
+    return same and runs["graph"][4] <= limit and not missing, counts
 
 
 def dense_replay(full, seq, scans, full_poses, full_syncs, here, cuda_build, devmod,
@@ -1270,7 +1483,7 @@ def main() -> int:
         from open3d_slam_torch.models.async_driver import AsyncSlamDriver
         from open3d_slam_torch.models.slam_wrapper import SlamWrapper
         from open3d_slam_torch.ops import (cuda_build, cuda_gicp, cuda_icp, cuda_knn,
-                                           cuda_normals, cuda_solve6, gn_graph)
+                                           cuda_normals, cuda_p2p, cuda_solve6, gn_graph)
         from open3d_slam_torch.parallel import multi_start
         from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
         from open3d_slam_torch.utils import pointcloud as pclib
@@ -1324,7 +1537,8 @@ def main() -> int:
                  Recorder(cuda_build, cuda_normals, "radius_moments_at"),
                  Recorder(cuda_build, cuda_knn, "nn_argmin_within"),
                  Recorder(cuda_build, cuda_icp, "p2l_normal_eq"),
-                 Recorder(cuda_build, cuda_solve6, "solve6")]
+                 Recorder(cuda_build, cuda_solve6, "solve6"),
+                 Recorder(cuda_build, cuda_p2p, "p2p_step")]
     for rec in recorders:
         rec.install()
     slam = SlamWrapper(params, device="cuda")
@@ -1456,7 +1670,8 @@ def main() -> int:
     ok = ok and good
 
     # 7. Global localization at config 4's width.
-    good, global_key = global_localization(cuda_build, cfg, datasets, pclib, multi_start)
+    good, global_key = global_localization(cuda_build, cfg, datasets, pclib, multi_start,
+                                           gn_graph, devmod, name_power)
     ok = ok and good
 
     # 8. Point-to-plane tracking: step 3's replay over its first scans with
@@ -1487,30 +1702,40 @@ def main() -> int:
         print(f"point-to-plane tracking never launched {missing}", file=sys.stderr)
         ok = False
 
+    # 8b. Point-to-point tracking: the same scans with PointToPointIcp for
+    # both registrations, graphed and eager.
+    p2p_params = cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
+    p2p_params.mapper.is_attempt_loop_closures = False
+    good, p2p_key = p2p_tracking(p2p_params, seq, scans, cuda_build, devmod, evaluation,
+                                 gn_graph, SlamWrapper, name_power)
+    ok = ok and good
+
     # 8a. The scale-out layer in a 1-rank NCCL group.
     # It removes the recorders once its path has run.
     good, par_key = scale_out(cuda_build, name_power, datasets, pclib, recorders)
     ok = ok and good
     phases = (full_key, by_key, ab_key, chain_key, dense_key, async_key, cli_key, global_key,
-              p2l_key, par_key)
+              p2l_key, p2p_key, par_key)
     if set().union(*phases) != {key for rec in recorders for key in rec.inputs}:
         print("a launch key has no recorded inputs", file=sys.stderr)
         ok = False
 
     # 9. Each kernel against its plain version, at each of its shapes.  The
     # launches of a shape are those of the full replay, else the
-    # closures-off replay's, else those of steps 6 to 8a together.
+    # closures-off replay's, else those of steps 4a and 6 to 8a together.
     entries = []
     for rec, entry_fn, mod in ((recorders[0], gicp_entry, cuda_gicp),
                                (recorders[1], kth_entry, cuda_normals),
                                (recorders[2], moments_entry, cuda_normals),
                                (recorders[3], knn_entry, cuda_knn),
                                (recorders[4], icp_entry, cuda_icp),
-                               (recorders[5], solve6_entry, cuda_solve6)):
+                               (recorders[5], solve6_entry, cuda_solve6),
+                               (recorders[6], p2p_entry, cuda_p2p)):
         for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
             key = (name, shape)
             n_launch = full_key.get(key, by_key.get(key, sum(
-                c.get(key, 0) for c in (chain_key, cli_key, global_key, p2l_key, par_key))))
+                c.get(key, 0) for c in (chain_key, cli_key, global_key, p2l_key, p2p_key,
+                                        par_key))))
             good, entry = entry_fn(mod, shape, n_launch, args, kwargs)
             ok = ok and good
             entries.append(entry)

@@ -1,31 +1,35 @@
-"""The Gauss-Newton loops of K1 and K4 kept on the card: CUDA graphs.
+"""The registration loops kept on the card: CUDA graphs.
 
-The JAX package runs each fused loop (``registration._icp_gicp_fused_batch``,
-``_icp_p2l_fused_batch``) as one ``lax.while_loop``: one compiled program
-that returns to the host once per registration.  The port's counterpart is
-a handful of ``torch.cuda.CUDAGraph``s per loop shape, captured once and
-replayed for every call:
+The JAX package runs each ICP loop (``registration._icp_gicp_fused_batch``,
+``_icp_p2l_fused_batch``, ``icp_point_to_point``) as one ``lax.while_loop``:
+one compiled program that returns to the host once per registration.  The
+port's counterpart is a handful of ``torch.cuda.CUDAGraph``s per loop shape,
+captured once and replayed for every call:
 
-- the start, the normal equations at the initial poses (``k = 0``);
+- the start, the state at the initial poses (``k = 0``);
 - a chunk of ``DONE_CHECK_EVERY`` iterations, between whose replays the
   host reads ``done`` once, through the counted ``pull_bool``;
 - a remainder chunk of ``max_iterations % DONE_CHECK_EVERY`` iterations,
   so that no loop runs past its limit.
 
-A loop is a state (``GNState``) and two functions the caller builds from a
-dict of input tensors: ``start()`` gives the first state and ``step(state)``
-one iteration (``registration._gn_start``, ``_gn_iteration``).  ``drive``
-runs them in chunks for both paths, so the eager loop (the CPU, a
-``group``, ``MODE = "eager"``) and the graphs share the iteration's math and
-read ``done`` after the same iterations.
+A loop is a state (any ``NamedTuple`` of tensors with a ``done`` field:
+``GNState`` for the Gauss-Newton loops of K1 and K4,
+``registration.P2PState`` for point-to-point ICP) and two functions the
+caller builds from a dict of input tensors: ``start()`` gives the first
+state and ``step(state)`` one iteration (``registration._gn_start``,
+``_gn_iteration``, ``_p2p_program``).  ``drive`` runs them in chunks for
+both paths, so the eager loop (the CPU, a ``group``, ``MODE = "eager"``)
+and the graphs share the iteration's math and read ``done`` after the same
+iterations.
 
 ``run`` keeps, per key (everything that fixes the captured work: the loop
 kind, the shapes, the retraction, the device, the sweep's tile and split
 counts, the correspondence distance and the convergence thresholds), static
-buffers for the inputs and the state and the graphs that read and write
-them.  A call copies its inputs in (``copy_``), replays the start and the
-chunks, and clones the result out, so the next call cannot overwrite a
-result already returned.
+buffers for the inputs and the state (laid out as the first start's own
+tensors, so with the strides the eager loop's tensors have) and the graphs
+that read and write them.  A call copies its inputs in (``copy_``), replays
+the start and the chunks, and clones the result out, so the next call
+cannot overwrite a result already returned.
 
 Capture (``_Graph``) runs on a side stream, after one start and one step
 there (the warm-up torch's graph docs prescribe): the kernels' scratch
@@ -80,7 +84,9 @@ class GNState(NamedTuple):
     done: torch.Tensor   # (B,) bool converged (frozen)
 
 
-Program = Tuple[Callable[[], GNState], Callable[[GNState], GNState]]
+# A loop state: a NamedTuple of tensors with a ``done`` field.
+State = Tuple[torch.Tensor, ...]
+Program = Tuple[Callable[[], State], Callable[[State], State]]
 
 
 def chunk_lengths(max_iterations: int) -> List[int]:
@@ -90,14 +96,14 @@ def chunk_lengths(max_iterations: int) -> List[int]:
     return [DONE_CHECK_EVERY] * whole + ([rest] if rest else [])
 
 
-def steps(step: Callable[[GNState], GNState], state: GNState, k: int) -> GNState:
+def steps(step: Callable[[State], State], state: State, k: int) -> State:
     for _ in range(k):
         state = step(state)
     return state
 
 
-def drive(start: Callable[[], GNState], chunk: Callable[[GNState, int], GNState],
-          max_iterations: int) -> GNState:
+def drive(start: Callable[[], State], chunk: Callable[[State, int], State],
+          max_iterations: int) -> State:
     """The loop: ``start()``, then ``chunk(state, k)`` for each chunk, with a
     counted read of ``done`` after every whole chunk (a converged element is
     frozen, so iterations past its convergence change nothing)."""
@@ -151,23 +157,21 @@ class _Loop:
                  program: Callable[[Dict[str, torch.Tensor]], Program], capture: bool):
         self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
                        for k, v in inputs.items()}
-        T0 = inputs["inits"]
-        b, dev = T0.shape[0], T0.device
-        # JtJ and Jtr as views of a (B, 8, 128) buffer, with the strides of the
-        # views ``cuda_gicp.unpack`` gives the eager loop.
-        gram = torch.zeros((b, 8, 128), dtype=torch.float32, device=dev)
-        self.state = GNState(
-            torch.zeros((b, 4, 4), dtype=torch.float32, device=dev),
-            gram[:, 0:6, 0:6], gram[:, 0:6, 6],
-            torch.zeros(b, dtype=torch.float32, device=dev),
-            torch.zeros(b, dtype=torch.float32, device=dev),
-            torch.zeros(b, dtype=torch.int32, device=dev),
-            torch.zeros(b, dtype=torch.bool, device=dev))
+        self.load(inputs)
         self.start, self.step = program(self.inputs)
         self.capture = capture
-        self.stream = _side_stream(dev) if capture else None
         self.runs: Dict[int, object] = {}
-        self.scratch = None
+        self.stream = self.scratch = None
+        if capture:
+            self.stream = _side_stream(self.inputs["inits"].device)
+            with capturing:
+                first = self._warm_up()
+        else:
+            first = self.start()
+        # The state's buffers have the layout of the start's own tensors (the
+        # Gauss-Newton loop's JtJ and Jtr are strided views of its Gram).
+        self.state = type(first)(*(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                                       device=t.device) for t in first))
 
     def load(self, inputs: Dict[str, torch.Tensor]):
         for k, v in inputs.items():
@@ -180,16 +184,18 @@ class _Loop:
                 buf.copy_(v)
         return body
 
-    def _warm_up(self):
+    def _warm_up(self) -> State:
         """One start and one step on the side stream, on the inputs just
-        loaded, before the first capture."""
+        loaded, before the first capture; returns the start's state."""
         main = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
-            self.step(self.start())
+            first = self.start()
+            self.step(first)
         main.wait_stream(self.stream)
         b, m = self.inputs["inits"].shape[0], self.inputs["points"].shape[-2]
         self.scratch = nn_layout.scratch(self.stream.device, self.stream.cuda_stream, b, m)
+        return first
 
     def prepare(self, k: int):
         """The runner of a chunk of ``k`` iterations (0: the start), captured
@@ -199,19 +205,17 @@ class _Loop:
                 self.runs[k] = _Eager(self._body(k))
             else:
                 with capturing:
-                    if self.scratch is None:
-                        self._warm_up()
                     self.runs[k] = _Graph(self._body(k), self.stream)
         return self.runs[k]
 
-    def run(self, k: int) -> GNState:
+    def run(self, k: int) -> State:
         self.prepare(k).replay()
         return self.state
 
 
 def run(key: Hashable, inputs: Dict[str, torch.Tensor],
         program: Callable[[Dict[str, torch.Tensor]], Program],
-        max_iterations: int) -> GNState:
+        max_iterations: int) -> State:
     """The loop of ``program`` on ``inputs`` through the static buffers of
     ``key``: CUDA graphs on the card (``MODE == "graph"``), the eager runner
     otherwise.  ``inputs`` holds "inits" (B, 4, 4) and "points" (..., M, 3);
@@ -224,7 +228,6 @@ def run(key: Hashable, inputs: Dict[str, torch.Tensor],
         loop = _entries.get(key)
         if loop is None:
             loop = _Loop(inputs, program, capture)
-            loop.load(inputs)
             # Every chunk this call may need, before any replay; a key whose
             # capture failed is not kept.
             for k in (0, *chunk_lengths(max_iterations)):
@@ -233,7 +236,7 @@ def run(key: Hashable, inputs: Dict[str, torch.Tensor],
         else:
             loop.load(inputs)
         state = drive(lambda: loop.run(0), lambda s, k: loop.run(k), max_iterations)
-        return GNState(*(t.clone() for t in state))
+        return type(state)(*(t.clone() for t in state))
 
 
 def captured() -> Tuple[int, int]:

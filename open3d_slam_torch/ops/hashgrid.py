@@ -141,7 +141,8 @@ def gate(points: torch.Tensor, valid: torch.Tensor, queries: torch.Tensor,
     ``max_dist``."""
     i = idx.reshape(-1).long()
     d2 = ((points[i] - queries.reshape(-1, 3)) ** 2).sum(dim=-1)
-    md = torch.tensor(float(max_dist), dtype=torch.float32, device=points.device)
+    # A fill, not a copy from the host: this runs inside captured loops.
+    md = torch.full((), float(max_dist), dtype=torch.float32, device=points.device)
     found = torch.isfinite(e.reshape(-1)) & (d2 <= md * md) & valid[i]
     return found.reshape(idx.shape), d2.reshape(idx.shape)
 

@@ -3,15 +3,17 @@ point-to-point ICP over kernel K3.
 
 Port of ``open3d_slam_tpu.ops.registration`` on its kernel routes:
 ``RegistrationResult``, ``_solve6``, ``_euler_xyz_transform``,
-``_result_stats``, ``_p2p_step``, the fused batched loops
+``_result_stats``, the fused batched loops
 (``_icp_gicp_fused_batch``, ``_icp_p2l_fused_batch``),
 ``batched_icp_point_to_plane``, ``icp_point_to_plane``, ``icp_generalized``,
-``icp_point_to_point`` and ``evaluate_registration``.  Semantics are the JAX
-package's: step from the normal equations at T, re-evaluate at T_new, stop
-per batch element on Open3D's relative fitness/RMSE rule, freeze converged
-elements.  The port takes the fused route on every device (the JAX package's
-unfused hash-grid branch, its CPU path, is not ported); point-to-point ICP
-finds its correspondences through ``hashgrid.query_nearest`` (K3).
+``icp_point_to_point`` (its Kabsch step ``_p2p_step`` is
+``cuda_p2p.p2p_step``) and ``evaluate_registration``.  Semantics are the JAX
+package's: step from the normal equations (or the Kabsch moments) at T,
+re-evaluate at T_new, stop per batch element on Open3D's relative
+fitness/RMSE rule, freeze converged elements.  The port takes the fused
+route on every device (the JAX package's unfused hash-grid branch, its CPU
+path, is not ported); point-to-point ICP finds its correspondences through
+``hashgrid.query_nearest`` (K3).
 
 With a ``group`` (a ``torch.distributed`` process group), the source is one
 point shard of a cloud split over the group's ranks: the fused loops sum the
@@ -20,30 +22,29 @@ it, in rank order (``utils.collectives.gather_sum``, the JAX package's
 ``psum`` over ``axis_name``), so every rank takes the same steps and stops at
 the same iteration.
 
-The fused loops' iterations on the card, with no ``group``, are replays of
-CUDA graphs (``ops/gn_graph.py``), the counterpart of the JAX package's
+The loops' iterations on the card, with no ``group``, are replays of CUDA
+graphs (``ops/gn_graph.py``), the counterpart of the JAX package's
 ``lax.while_loop``: the start and chunks of ``gn_graph.DONE_CHECK_EVERY``
 iterations, with one counted read of ``done`` between chunks.  Converged
 elements freeze (T kept, the iteration count not advanced), so a few extra
 iterations after every element has converged change nothing, and the poses
-and iteration counts are those of a check on every iteration.  On the CPU and with a
-``group`` the same iteration (``_gn_iteration``) runs eagerly, in the same
-chunks (``gn_graph.drive``).
+and iteration counts are those of a check on every iteration.  On the CPU
+and with a ``group`` the same iteration (``_gn_iteration``, or the
+point-to-point loop's) runs eagerly, in the same chunks
+(``gn_graph.drive``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
-from open3d_slam_torch.ops import cuda_gicp, cuda_icp, cuda_solve6, gn_graph, hashgrid
-from open3d_slam_torch.ops import nn_layout
+from open3d_slam_torch.ops import cuda_gicp, cuda_icp, cuda_p2p, cuda_solve6, gn_graph
+from open3d_slam_torch.ops import hashgrid, nn_layout
 from open3d_slam_torch.ops.gn_graph import GNState
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils import collectives, se3
-from open3d_slam_torch.utils.device import to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
 
 _JITTER = 1e-6
@@ -88,48 +89,32 @@ def _euler_xyz_transform(x: torch.Tensor) -> torch.Tensor:
     return se3.make_transform(R, x[..., 3:6])
 
 
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed pairwise order (the row padded with
+    zeros to a power of two, then its halves added elementwise until one
+    entry is left).  A reduction kernel's order can change with the number
+    of rows (it does on the card), and the point-to-point loop keeps each
+    hypothesis's result independent of the batch."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        x = torch.cat([x, x.new_zeros(*x.shape[:-1], width - n)], dim=-1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def _result_stats(d2: torch.Tensor, w: torch.Tensor, source_mask: torch.Tensor):
     """(fitness, rmse) over the last axis: inlier fraction of the valid
-    source points, RMS distance over the inliers."""
+    source points, RMS distance over the inliers.  The counts are exact in
+    any order; the d2 sum is taken in ``_row_sum``'s fixed order."""
     n_src = source_mask.to(torch.float32).sum(-1)
     n_in = w.to(torch.float32).sum(-1)
-    d2_sum = torch.where(w, d2, torch.zeros_like(d2)).sum(-1)
+    d2_sum = _row_sum(torch.where(w, d2, torch.zeros_like(d2)))
     fitness = n_in / torch.clamp(n_src, min=1.0)
     rmse = torch.sqrt(d2_sum / torch.clamp(n_in, min=1.0))
     return fitness, rmse
-
-
-def _p2p_moments(pts: torch.Tensor, q: torch.Tensor, w: torch.Tensor):
-    """Weighted centroids and cross-covariance of ``_p2p_step``: pts, q
-    (B, M, 3), w (B, M) -> H (B, 3, 3), p_bar, q_bar (B, 3)."""
-    wf = w.to(pts.dtype)[..., None]
-    n = torch.clamp(wf.sum(-2), min=1.0)
-    p_bar = (pts * wf).sum(-2) / n
-    q_bar = (q * wf).sum(-2) / n
-    P = (pts - p_bar[..., None, :]) * wf
-    Q = q - q_bar[..., None, :]
-    return P.transpose(-1, -2) @ Q, p_bar, q_bar
-
-
-def _p2p_step(H: np.ndarray, p_bar: np.ndarray, q_bar: np.ndarray) -> np.ndarray:
-    """Weighted Kabsch (Umeyama without scaling, as Open3D) from the
-    moments, on the host in float32 with LAPACK's SVD, one matrix at a time:
-    (B, 3, 3), (B, 3), (B, 3) -> dT (B, 4, 4).  On the card a batched SVD
-    may take another cuSOLVER routine than a single one; on the host every
-    hypothesis of a batch gets the same step as it would alone."""
-    H, p_bar, q_bar = (np.asarray(a, np.float32) for a in (H, p_bar, q_bar))
-    U, _, Vt = np.linalg.svd(H)
-    V, Ut = np.swapaxes(Vt, -1, -2), np.swapaxes(U, -1, -2)
-    d = np.sign(np.linalg.det(V @ Ut)).astype(np.float32)
-    D = np.zeros(H.shape, np.float32)
-    D[:, 0, 0] = D[:, 1, 1] = 1.0
-    D[:, 2, 2] = d
-    R = V @ D @ Ut
-    dT = np.zeros((H.shape[0], 4, 4), np.float32)
-    dT[:, :3, :3] = R
-    dT[:, :3, 3] = q_bar - (R @ p_bar[..., None])[..., 0]
-    dT[:, 3, 3] = 1.0
-    return dT
 
 
 def _gn_start(stats_eq: Callable, inits: torch.Tensor) -> GNState:
@@ -395,6 +380,75 @@ def icp_generalized(source: PointCloud, source_covs: torch.Tensor,
     return res[0]
 
 
+class P2PState(NamedTuple):
+    T: torch.Tensor      # (B, 4, 4) poses
+    idx: torch.Tensor    # (B, M) int32 correspondences at T, into the grid's sorted points
+    w: torch.Tensor      # (B, M) bool inliers at T
+    fit: torch.Tensor    # (B,) fitness at T
+    rmse: torch.Tensor   # (B,) inlier RMSE at T
+    it: torch.Tensor     # (B,) int32 iterations taken
+    done: torch.Tensor   # (B,) bool converged (frozen)
+
+
+def _apply_left(dT: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """dT @ T for (..., 4, 4), each entry summed in the order
+    ((a0 + a1) + a2) + a3 by elementwise operations: a batched product's
+    order can change with the batch size (cuBLAS's does)."""
+    out = dT[..., :, 0:1] * T[..., 0:1, :]
+    for k in range(1, 4):
+        out = out + dT[..., :, k:k + 1] * T[..., k:k + 1, :]
+    return out
+
+
+def _p2p_program(x: dict, cell_size: float, max_dist: float, relative_fitness: float,
+                 relative_rmse: float) -> gn_graph.Program:
+    """The point-to-point loop on the dict ``x`` (the source "points",
+    "mask" and "query_order", the "inits", and the target grid and K3's
+    layout of it, ``_grid`` and ``_nearest_layout``): the start (the
+    correspondences at the initial poses) and one iteration (the JAX loop's
+    body): gather the correspondences, the Kabsch step
+    (``cuda_p2p.p2p_step``), T_new = dT T, the correspondences at T_new,
+    Open3D's relative fitness/RMSE rule; converged hypotheses freeze."""
+    def corr(T):
+        pts = se3.transform_points(T, x["points"])
+        idx, d2, w = hashgrid.query_nearest(_grid(x, cell_size), pts, max_dist,
+                                            _nearest_layout(x), x["query_order"], x["mask"])
+        fit, rmse = _result_stats(d2, w, x["mask"])
+        return idx, w, fit, rmse
+
+    def start():
+        T = x["inits"]
+        bsz = T.shape[0]
+        return P2PState(T, *corr(T), torch.zeros(bsz, dtype=torch.int32, device=T.device),
+                        torch.zeros(bsz, dtype=torch.bool, device=T.device))
+
+    def step(s: P2PState) -> P2PState:
+        pts = se3.transform_points(s.T, x["points"])
+        q = x["t_points"][s.idx.long()]
+        dT = cuda_p2p.p2p_step(pts, q, s.w)
+        T_new = torch.where(s.done[:, None, None], s.T, _apply_left(dT, s.T))
+        idx, w, fitn, rmsen = corr(T_new)
+        conv = ((s.fit - fitn).abs() < relative_fitness) & \
+            ((s.rmse - rmsen).abs() < relative_rmse)
+        return P2PState(T_new, idx, w, fitn, rmsen, s.it + (~s.done).to(torch.int32),
+                        s.done | conv)
+
+    return start, step
+
+
+def _grid(x: dict, cell_size: float) -> HashGrid:
+    """The target grid held in ``x``."""
+    return HashGrid(hashes_sorted=x["t_hashes"], points_sorted=x["t_points"],
+                    normals_sorted=None, order=x["t_grid_order"], cell_size=cell_size)
+
+
+def _nearest_layout(x: dict) -> nn_layout.TargetLayout:
+    """K3's layout held in ``x``, bound to its target points and hashes as
+    they are now (a call's copy-in changes them together)."""
+    target = nn_layout.TargetLayout(x["t_pts"], x["t_boxes"], x["t_order"])
+    return nn_layout.bind(target, x["t_points"], x["t_hashes"])
+
+
 def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
                                inits: torch.Tensor, max_correspondence_distance,
                                max_iterations: int = 30,
@@ -402,44 +456,44 @@ def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
                                relative_rmse: float = 1e-6) -> RegistrationResult:
     """Point-to-point ICP of one source cloud from each of the (B, 4, 4)
     ``inits`` against one target grid: each iteration finds the
-    correspondences of every hypothesis in one K3 launch, and each
+    correspondences of every hypothesis in one K3 launch and takes every
+    hypothesis's Kabsch step in one ``cuda_p2p.p2p_step`` launch, and each
     hypothesis's result is that of ``icp_point_to_point`` from its init
-    alone (converged hypotheses freeze).  K3's layout of the grid and the
+    alone, bit for bit (converged hypotheses freeze; the kernels treat
+    hypotheses apart, and the loop's sums and products are taken in orders
+    that do not depend on the batch: ``_row_sum``, ``_apply_left``).  K3's layout of the grid and the
     Morton order of the untransformed source, which every pose shares, are
-    made once per call.  The Kabsch step's SVD runs on the host, one counted
-    pull of the (B, 3, 3) moments per iteration, which also reads
-    ``done``."""
+    made once per call.  On the card the iterations are CUDA-graph replays
+    (``gn_graph.run``) on static copies of the inputs, with one counted read
+    of ``done`` per chunk; elsewhere they run eagerly in the same chunks."""
     dev = inits.device
-    bsz = inits.shape[0]
     max_dist = float(max_correspondence_distance)
     layout = hashgrid.nearest_layout(target_grid)
-    order = nn_layout.query_order(source.points, source.mask)
+    inputs = dict(inits=inits.to(torch.float32).contiguous(), points=source.points,
+                  mask=source.mask,
+                  query_order=nn_layout.query_order(source.points, source.mask),
+                  t_points=target_grid.points_sorted, t_hashes=target_grid.hashes_sorted,
+                  t_grid_order=target_grid.order, t_pts=layout.pts, t_boxes=layout.boxes,
+                  t_order=layout.order)
 
-    def corr_stats(T):
-        pts = se3.transform_points(T, source.points)
-        idx, d2, w = hashgrid.query_nearest(target_grid, pts, max_dist, layout, order,
-                                            source.mask)
-        fit, rmse = _result_stats(d2, w, source.mask)
-        return pts, idx, w, fit, rmse
+    def program(x):
+        return _p2p_program(x, target_grid.cell_size, max_dist, relative_fitness,
+                            relative_rmse)
 
-    T = inits.to(torch.float32)
-    pts, idx, w, fit, rmse = corr_stats(T)
-    it = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
-    for _ in range(max_iterations):
-        q = target_grid.points_sorted[idx.long()]
-        H, p_bar, q_bar, done_h = to_host(*_p2p_moments(pts, q, w), done)
-        if done_h.all():
-            break
-        dT = to_device(_p2p_step(H, p_bar, q_bar), dev)
-        T_new = torch.where(done[:, None, None], T, dT @ T)
-        pts, idx, w, fitn, rmsen = corr_stats(T_new)
-        conv = ((fit - fitn).abs() < relative_fitness) & \
-            ((rmse - rmsen).abs() < relative_rmse)
-        it = it + (~done).to(torch.int32)
-        T, fit, rmse, done = T_new, fitn, rmsen, done | conv
-    return RegistrationResult(transformation=T, fitness=fit, inlier_rmse=rmse,
-                              num_iterations=it)
+    if gn_graph.uses_static_buffers(dev):
+        b, m = inputs["inits"].shape[0], source.points.shape[0]
+        n_tiles = layout.boxes.shape[-2]
+        splits = (nn_layout.plan_splits(-(-m // nn_layout.GROUP), b, n_tiles, dev)
+                  if dev.type == "cuda" else 0)
+        key = ("p2p", dev, max_dist, relative_fitness, relative_rmse, n_tiles, splits,
+               tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        state = gn_graph.run(key, inputs, program, max_iterations)
+    else:
+        start, step = program(inputs)
+        state = gn_graph.drive(start, lambda s, k: gn_graph.steps(step, s, k),
+                               max_iterations)
+    return RegistrationResult(transformation=state.T, fitness=state.fit,
+                              inlier_rmse=state.rmse, num_iterations=state.it)
 
 
 def icp_point_to_point(source: PointCloud, target_grid: HashGrid, init: torch.Tensor,

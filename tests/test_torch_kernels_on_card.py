@@ -947,3 +947,151 @@ def test_solve6_kernel_equals_plain_on_card(cuda_device, rng, batch):
     lib = torch.cholesky_solve(-Jtr[..., None], L)[..., 0]
     scale = lib.abs().amax(-1, keepdim=True)
     assert float(((got - lib).abs() / scale).max()) < 1e-3
+
+
+P2P_TOL = 1e-5   # R entries; t within P2P_TOL (1 + |p_bar|), as tests/test_torch_p2p.py
+
+
+def _p2p_inputs(rng, dev, b, m):
+    """Correspondences of ``b`` hypotheses: rotated, shifted and noisy
+    copies of anisotropic clouds, 80% inliers; with b > 3 the last three
+    are a reflection (det H < 0), a planar source (rank 2) and no inliers."""
+    pts = rng.normal(size=(b, m, 3)) * np.array([4.0, 2.5, 1.0]) + rng.normal(
+        scale=10.0, size=(b, 1, 3))
+    ang = rng.uniform(-0.4, 0.4, size=b)
+    R = np.zeros((b, 3, 3))
+    R[:, 0, 0] = R[:, 1, 1] = np.cos(ang)
+    R[:, 0, 1], R[:, 1, 0] = -np.sin(ang), np.sin(ang)
+    R[:, 2, 2] = 1.0
+    w = rng.uniform(size=(b, m)) < 0.8
+    if b > 3:
+        pts[-2, :, 2] = 0.0
+        w[-1] = False
+    q = np.einsum("bij,bmj->bmi", R, pts) + rng.normal(scale=0.5, size=(b, 1, 3)) + \
+        rng.normal(scale=0.03, size=(b, m, 3))
+    if b > 3:
+        q[-3, :, 2] = -q[-3, :, 2]
+    return tuple(torch.from_numpy(a).to(dev) for a in (pts.astype(np.float32),
+                                                       q.astype(np.float32), w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m", [(64, 1024), (1, 16384)])
+def test_p2p_step_kernel_matches_plain_on_card(cuda_device, rng, b, m):
+    """The Kabsch step's kernel against its plain version (``torch.linalg.svd``
+    on the card) at the mid stage's and a tracking scan's shapes: R within
+    P2P_TOL, t within P2P_TOL (1 + |p_bar|), no inliers give I exactly; two
+    calls are bit-equal, and each hypothesis alone gives its row of the
+    batch bit for bit (one block a hypothesis, no atomics)."""
+    from open3d_slam_torch.ops import cuda_p2p
+    pts, q, w = _p2p_inputs(rng, cuda_device, b, m)
+    got = cuda_p2p.p2p_step(pts, q, w)
+    want = cuda_p2p.p2p_step_plain(pts, q, w)
+    assert torch.equal(got, cuda_p2p.p2p_step(pts, q, w))
+    assert float((got[:, :3, :3] - want[:, :3, :3]).abs().max()) <= P2P_TOL
+    _, p_bar, _ = cuda_p2p.p2p_moments(pts, q, w)
+    t_err = (got[:, :3, 3] - want[:, :3, 3]).abs().amax(-1)
+    assert bool((t_err <= P2P_TOL * (1.0 + p_bar.norm(dim=-1))).all())
+    assert torch.equal(got[:, 3], want[:, 3])
+    if b > 3:
+        assert torch.equal(got[-1], torch.eye(4, device=cuda_device))
+        H, _, _ = cuda_p2p.p2p_moments(pts[-3:-2], q[-3:-2], w[-3:-2])
+        assert float(torch.linalg.det(H.double())) < 0
+    for i in (0, b - 1):
+        assert torch.equal(cuda_p2p.p2p_step(pts[i:i + 1], q[i:i + 1], w[i:i + 1]),
+                           got[i:i + 1])
+
+
+@pytest.mark.cuda
+def test_p2p_step_failed_build_or_launch_raises_on_card(cuda_device, monkeypatch):
+    """A launch the card refuses (a grid of no blocks) raises; a source nvcc
+    refuses raises at the build, and nothing gives way to the plain version."""
+    from open3d_slam_torch.ops import cuda_p2p
+    empty = torch.empty((0, 8, 3), device=cuda_device)
+    with pytest.raises(RuntimeError):
+        cuda_p2p._launch_p2p(empty, empty, torch.empty((0, 8), dtype=torch.bool,
+                                                       device=cuda_device))
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS + ["--no-such-flag"])
+    pts = torch.zeros((1, 8, 3), device=cuda_device)
+    with pytest.raises(RuntimeError):
+        cuda_p2p.p2p_step(pts, pts, torch.ones((1, 8), dtype=torch.bool, device=cuda_device))
+
+
+def _p2p_problem(rng, dev, batch, m, n):
+    """Point-to-point ICP of an m-point source drawn from an n-point target
+    of ground and wall planes, from ``batch`` perturbed inits (the mid
+    stage's shape at batch 64).  Returns (source, grid, inits)."""
+    from open3d_slam_torch.utils import se3
+    pts = _planes(rng, n)
+    mask = np.ones(n, bool)
+    mask[-(n // 50):] = False
+    grid = hashgrid.build(tpc.PointCloud(torch.from_numpy(pts).to(dev),
+                                         torch.from_numpy(mask).to(dev)), 2.0)
+    src = pts[rng.choice(n - n // 50, m, replace=m > n - n // 50)] + rng.normal(
+        scale=0.03, size=(m, 3)).astype(np.float32)
+    smask = rng.uniform(size=m) > 0.05
+    source = tpc.PointCloud(torch.from_numpy(src).to(dev), torch.from_numpy(smask).to(dev))
+    xi = np.concatenate([rng.normal(scale=0.03, size=(batch, 3)),
+                         rng.normal(scale=0.3, size=(batch, 3))], 1).astype(np.float32)
+    return source, grid, se3.se3_exp(torch.from_numpy(xi).to(dev)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m,n", [(64, 1024, 16384), (1, 4096, 16384)])
+def test_graphed_point_to_point_equals_eager_on_card(cuda_device, rng, monkeypatch, batch, m,
+                                                     n):
+    """The point-to-point loop replayed as CUDA graphs gives the eager loop's
+    poses, fitness, RMSE and iteration counts bit for bit, with the same
+    launches and ``done`` reads once captured (the first call adds its
+    warm-up's: a start and a step); a call with another remainder captures
+    that chunk alone; no chunk of the eager loop synchronises (torch's sync
+    debug mode, set to raise, around each chunk)."""
+    from open3d_slam_torch.ops import gn_graph, registration as treg
+    gn_graph.clear()
+    steps = gn_graph.steps
+
+    def no_sync_steps(step, state, k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return steps(step, state, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    for iters in (12, 7):
+        problem = _p2p_problem(rng, cuda_device, batch, m, n)
+
+        def run():
+            return treg.batched_icp_point_to_point(*problem, 2.0, max_iterations=iters)
+
+        monkeypatch.setattr(gn_graph, "MODE", "eager")
+        monkeypatch.setattr(gn_graph, "steps", no_sync_steps)
+        want, want_n, want_syncs = _counted(run)
+        monkeypatch.setattr(gn_graph, "steps", steps)
+        monkeypatch.setattr(gn_graph, "MODE", "graph")
+        first, first_n, _ = _counted(run)
+        got, got_n, got_syncs = _counted(run)
+        assert _same_result(first, want) and _same_result(got, want)
+        assert got_n == want_n and got_syncs == want_syncs <= -(-iters // 4)
+        warm = {("nn_argmin_within", (batch, m, n)): 2, ("p2p_step", (batch, m)): 1}
+        assert dict(first_n - want_n) == (warm if iters == 12 else {})
+        assert want_n[("p2p_step", (batch, m))] >= 1
+    assert float(want.fitness.min()) > 0.5
+    gn_graph.clear()
+
+
+@pytest.mark.cuda
+def test_batched_point_to_point_equals_independent_runs_on_card(cuda_device, rng):
+    """On the card, graphed, each hypothesis of a batch ends where its own
+    ``icp_point_to_point`` run ends, bit for bit."""
+    from open3d_slam_torch.ops import gn_graph, registration as treg
+    gn_graph.clear()
+    source, grid, inits = _p2p_problem(rng, cuda_device, 8, 1024, 16384)
+    batch = treg.batched_icp_point_to_point(source, grid, inits, 2.0, max_iterations=12)
+    for i in range(8):
+        one = treg.icp_point_to_point(source, grid, inits[i], 2.0, max_iterations=12)
+        assert torch.equal(batch.transformation[i], one.transformation)
+        assert torch.equal(batch.fitness[i], one.fitness)
+        assert torch.equal(batch.inlier_rmse[i], one.inlier_rmse)
+        assert int(batch.num_iterations[i]) == int(one.num_iterations)
+    gn_graph.clear()
