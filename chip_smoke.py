@@ -31,7 +31,20 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
   5. replays the same scans with the full ``velodyne_puck16`` configuration
      as users run it (loop closures on, undistortion on), counts reset
      again, and checks that a closure was accepted and applied, the ATE,
-     and that every kernel of that path ran;
+     and that every kernel of that path ran (the pose-graph kernels in the
+     closure's solve, one CUDA graph captured at the warm-up); prints the
+     ``optimization`` timer's parts (device ms between CUDA events);
+  5c. solves step 5's last closure graph (the configuration's 128 nodes /
+     512 edges) again by three routes in turns, three times each: the plain
+     route (``pose_graph.optimize_plain``, the eager torch operations the
+     port ran before its kernels), the eager kernels (``gn_graph.MODE =
+     "eager"``) and the graphed solve (the default); per route the median
+     ms between CUDA events, host launch calls (``torch.profiler``), counted
+     pulls (none), cuSOLVER's share (a ``cholesky_ex`` + ``cholesky_solve``
+     at 6N, timed alone, times the two stages' iterations), the largest
+     pose gap to the plain route (within 1e-4 m and rad, pruning equal),
+     and the graphed route bit-equal to the eager kernels with equal
+     launches;
   5a. replays them once more with the dense map on as well
      (``mapper.is_build_dense_map`` with the file's own dense map builder:
      0.05 m voxels, a 15 m crop, a carve every 10 scans, 524288 voxels a
@@ -83,7 +96,9 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      of the loops (``cuda_solve6``, at B > 1) bit-equal to its plain version;
      the point-to-point loop's Kabsch step (``cuda_p2p``) within its
      tolerance of its plain version, the library chain it replaced, with
-     the synchronising operations of one call of each;
+     the synchronising operations of one call of each; the pose-graph LM
+     step's three kernels (``cuda_pose_graph``) within theirs, with one
+     ``index_add_`` of the edge blocks timed beside the assembly;
   10. prints a ``kernels`` JSON line, the card line, and last the device
       JSON.
 
@@ -153,6 +168,10 @@ BLOCK_ITERS = 10
 AB_REPEATS = 3
 S2M_SCAN, S2M_MAP, S2M_ITERS, S2M_CORR = 4096, 65536, 50, 0.8
 S2M_CHAIN, S2M_REPEATS = 10, 3
+# Step 5c: turns of each pose-graph route; the largest pose gap allowed
+# between routes (m and rad: the tests' tolerance against JAX).
+PG_REPEATS = 3
+PG_TOL = 1e-4
 
 
 def fail(msg: str):
@@ -599,6 +618,117 @@ def p2p_entry(cuda_p2p, shape, n_launch, args, kwargs):
     return ok, {"name": f"p2p_step[{b}x{m}]", "route": "cuda",
                 "source": "open3d_slam_torch/csrc/p2p_step.cu",
                 "replaces": "open3d_slam_tpu/ops/registration.py:105",
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def pg_linearize_entry(cpg, shape, n_launch, args, kwargs):
+    """The pose-graph edge linearization at one shape the runs gave it: r
+    within ``cuda_pose_graph.residual_tolerance`` of the plain version's
+    (1e-5 of 1 + the edge's largest component, plus the spread of float32
+    logs of the edge's input, which both share), w and each block within 1e-5 of its
+    largest entry of the same quantities in float64 from the kernel's own r,
+    bit-equal across calls."""
+    import torch
+    X, a, b, T, info, unc, mask, mu = args
+    got, want = cpg.pg_linearize(*args), cpg.pg_linearize_plain(*args)
+    again = cpg.pg_linearize(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    r_err = float(((got.r.double() - want.r.double()).abs()
+                   / cpg.residual_tolerance(X, a, b, T)).max())       # <= 1 holds
+    ref = cpg.linearize_at(X.double(), a, b, info.double(), unc, mask, mu.double(),
+                           got.r.double())
+    b_err = max(float((getattr(got, k).double() - getattr(ref, k)).abs().max())
+                / max(float(getattr(ref, k).abs().max()), 1.0)
+                for k in ("w", "H_ss", "H_st", "H_tt", "b_s", "b_t", "cost"))
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    ok = same and r_err <= 1.0 and b_err <= 1e-5
+    ms = time_ms(lambda: cpg.pg_linearize(*args), 20)
+    plain = time_ms(lambda: cpg.pg_linearize_plain(*args), 3)
+    n, e = shape
+    # ~2050 float32 operations an edge (three inverses, two 4x4 products, the
+    # SE(3) log, the quadratic form, the adjoint, lam J, J^T lam J, J^T lam,
+    # the b's); X read once, 226 bytes of edge data in, 128 floats out.
+    b_ms, b_by = bound_ms(64.0 * n + 226.0 * e + 4 + 512.0 * e, 2050.0 * e)
+    print(f"pg_linearize {n}x{e}: r gap {r_err:.3e} of its tolerance (at most 1), w and "
+          f"blocks {b_err:.3e} of their scale from the kernel's r in float64 (tol 1e-5), "
+          f"bit-equal across calls {same}; "
+          f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return ok, {"name": f"pg_linearize[{n}x{e}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/pose_graph.cu",
+                "replaces": "open3d_slam_tpu/ops/pose_graph.py:110",
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def pg_assemble_entry(cpg, shape, n_launch, args, kwargs):
+    """The dense assembly: H and b within 1e-5 of their largest entry, the
+    cost within 1e-5 of itself, bit-equal across calls; one ``index_add_``
+    of the per-edge blocks into H viewed as (N N, 36) timed beside it (the
+    same sums with atomics: a yardstick the port never calls)."""
+    import torch
+    blocks, a, b, prior, damping = args
+    got, want = cpg.pg_assemble(*args), cpg.pg_assemble_plain(*args)
+    again = cpg.pg_assemble(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    h_err = float((got[0] - want[0]).abs().max()) / float(want[0].abs().max())
+    v_err = float((got[1] - want[1]).abs().max()) / max(float(want[1].abs().max()), 1.0)
+    c_err = abs(float(got[2]) - float(want[2])) / max(abs(float(want[2])), 1e-30)
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    ok = same and h_err <= 1e-5 and v_err <= 1e-5 and c_err <= 1e-5
+    ms = time_ms(lambda: cpg.pg_assemble(*args), 20)
+    plain = time_ms(lambda: cpg.pg_assemble_plain(*args), 3)
+    n, e = shape
+    idx = torch.cat([a * n + a, a * n + b, b * n + a, b * n + b])
+    vals = torch.cat([blocks.H_ss, blocks.H_st, blocks.H_st.transpose(-1, -2).contiguous(),
+                      blocks.H_tt]).reshape(4 * e, 36)
+    library = time_ms(lambda: torch.zeros(n * n, 36, device=idx.device).index_add_(
+        0, idx, vals), 20)
+    # Written once: H (6N)^2, b and the cost; read once: 3 blocks, 2 vectors,
+    # the cost term and the weight an edge, its ends, the prior, the damping.  156
+    # adds an edge (4 blocks, 2 vectors), 3 operations a diagonal entry, E
+    # cost adds.
+    n_bytes = 4.0 * (36 * n * n + 6 * n + 1) + e * (4.0 * 122 + 16) + 4.0 * n + 4
+    b_ms, b_by = bound_ms(n_bytes, 157.0 * e + 18.0 * n)
+    print(f"pg_assemble {n}x{e}: H err {h_err:.3e}, b err {v_err:.3e} of their scale, cost "
+          f"{c_err:.3e} of itself (tol 1e-5 each), bit-equal across calls {same}; {ms:.4f} ms "
+          f"vs plain (one-hot einsums) {plain:.4f} ms, index_add_ {library:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by})", flush=True)
+    return ok, {"name": f"pg_assemble[{n}x{e}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/pose_graph.cu",
+                "replaces": "open3d_slam_tpu/ops/pose_graph.py:129",
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+
+
+def pg_step_entry(cpg, shape, n_launch, args, kwargs):
+    """The retraction and accept: X within 1e-6 of (1 + |X|) of the plain
+    version, the damping (and so the accept decision) equal, bit-equal
+    across calls."""
+    import torch
+    got, want = cpg.pg_step(*args), cpg.pg_step_plain(*args)
+    again = cpg.pg_step(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    err = float((got[0] - want[0]).abs().max())
+    rel = float(((got[0] - want[0]).abs() / (1.0 + want[0].abs())).max())
+    ok = same and rel <= 1e-6 and torch.equal(got[1], want[1])
+    ms = time_ms(lambda: cpg.pg_step(*args), 20)
+    plain = time_ms(lambda: cpg.pg_step_plain(*args), 3)
+    n, e = shape
+    # ~262 float32 operations a node (the SE(3) exp, a 4x4 product), ~485 an
+    # edge (the residual and its quadratic form, the weighted term); X, delta
+    # and the edge data read once, X and the damping written once.
+    n_bytes = 64.0 * n + 24.0 * n + e * (16.0 + 64 + 144 + 4) + 8 + 64.0 * n + 4
+    b_ms, b_by = bound_ms(n_bytes, 262.0 * n + 485.0 * e)
+    print(f"pg_step {n}x{e}: X err {err:.3e}, {rel:.3e} of 1 + |X| (tol 1e-6), damping equal "
+          f"{torch.equal(got[1], want[1])}, bit-equal across calls {same}; {ms:.4f} ms vs "
+          f"plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return ok, {"name": f"pg_step[{n}x{e}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/pose_graph.cu",
+                "replaces": "open3d_slam_tpu/ops/pose_graph.py:153",
                 "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -1361,6 +1491,143 @@ def scale_out(cuda_build, name_power, datasets, pclib, recorders):
     return ok and not missing, counts
 
 
+class SolveProbe:
+    """Stands in for ``ops.pose_graph.optimize`` during step 5's replay and
+    keeps a copy of each graph it was given, with its arguments, so that
+    step 5c can solve the closure's graph again."""
+
+    def __init__(self, pg_ops):
+        self.pg_ops, self.optimize, self.calls, self.times = pg_ops, pg_ops.optimize, [], []
+
+    def __call__(self, graph, *args, **kwargs):
+        import dataclasses
+        self.times.append(time.perf_counter())
+        self.calls.append((type(graph)(**{f.name: getattr(graph, f.name).clone()
+                                          for f in dataclasses.fields(graph)}), args, kwargs))
+        return self.optimize(graph, *args, **kwargs)
+
+    def install(self):
+        self.pg_ops.optimize = self
+
+    def remove(self):
+        self.pg_ops.optimize = self.optimize
+
+
+def optimization_breakdown(telemetry):
+    """The closure stages' timers of a replay (device ms between CUDA
+    events): ``optimization`` and its parts, the loop-closure job's phases
+    (``lc_*``), a finished submap's features and odometry constraints:
+    {name: (calls, total ms)}."""
+    import torch
+    torch.cuda.synchronize()
+    out = {}
+    for name, t in sorted(telemetry.timers.items()):
+        if name.startswith(("optimization", "lc_", "submap_features", "odometry_constraints")):
+            t.resolve()
+            out[name] = (t.count, t.avg_ms * t.count)
+    return out
+
+
+def pose_gap(a, b):
+    """The largest translation (m) and rotation (rad) gap between two
+    (N, 4, 4) pose tensors, node by node."""
+    import torch
+    dt = float((a[:, :3, 3] - b[:, :3, 3]).norm(dim=-1).max())
+    rel = a[:, :3, :3].transpose(-1, -2).double() @ b[:, :3, :3].double()
+    cos = (rel.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0
+    skew = rel - rel.transpose(-1, -2)
+    sin = 0.5 * torch.stack([skew[:, 2, 1], skew[:, 0, 2], skew[:, 1, 0]], -1).norm(dim=-1)
+    return dt, float(torch.atan2(sin, cos).max())
+
+
+def pose_graph_routes(probe, routes, cuda_build, devmod, breakdown, per_scan_ms,
+                      solve_scans, name_power):
+    """Step 5c: the graph of step 5's last closure solved again by each
+    route of ``routes`` ({name: fn(graph, *args, **kwargs)}: "plain",
+    "kernels" and "graph"), in turns,
+    ``PG_REPEATS`` each: device ms between CUDA events (median), host launch
+    calls (``torch.profiler``), counted pulls, launches; cuSOLVER's share of
+    the solve (one ``cholesky_ex`` + ``cholesky_solve`` at 6N, times two
+    stages' iterations); the largest pose gap of each route to the first.
+    Returns whether every check held."""
+    import statistics
+    import torch
+    if not probe.calls:
+        print("step 5c: step 5 solved no pose graph", file=sys.stderr)
+        return False
+    graph, args, kwargs = probe.calls[-1]
+    n, e = graph.node_poses.shape[0], graph.edge_mask.shape[0]
+    iters = kwargs.get("max_iterations", 25)
+    print(f"step 5c: step 5's last closure graph, {n} nodes ({int(graph.node_mask.sum())} "
+          f"used) / {e} edges ({int(graph.edge_mask.sum())} used, "
+          f"{int((graph.edge_mask & graph.edge_uncertain).sum())} loop closures), "
+          f"{len(probe.calls)} solves in step 5; {name_power}", flush=True)
+    for name, (calls, total) in breakdown.items():
+        print(f"  step 5 timer {name}: {calls} calls, {total:.3f} ms in all "
+              f"({total / max(calls, 1):.3f} ms each; device ms between CUDA events)")
+    slowest = sorted(range(len(per_scan_ms)), key=lambda i: -per_scan_ms[i])[:4]
+    print(f"  step 5's scans that ran a solve (index: host ms) "
+          f"{ {i: round(per_scan_ms[i], 2) for i in solve_scans} }; the slowest "
+          f"{ {i: round(per_scan_ms[i], 2) for i in slowest} }", flush=True)
+    ms = {r: [] for r in routes}
+    out, syncs, launches = {}, {}, {}
+    for _ in range(PG_REPEATS):
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            cuda_build.launches.clear()
+            devmod.host_syncs.count = 0
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = fn(graph, *args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+            syncs[name], launches[name] = devmod.host_syncs.count, dict(cuda_build.launches)
+            if name in out and not all(torch.equal(a, b) for a, b in zip(out[name], res)):
+                print(f"step 5c: the {name} route gave other bits on a second turn",
+                      file=sys.stderr)
+                return False
+            out[name] = res
+    # cuSOLVER at 6N: a symmetric positive definite matrix of the solve's size.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    M = torch.randn(6 * n, 6 * n, device="cuda", generator=gen)
+    A = M @ M.T + 6 * n * torch.eye(6 * n, device="cuda")
+    rhs = torch.randn(6 * n, 1, device="cuda", generator=gen)
+    chol_ms = time_ms(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky_ex(A)[0]), 20)
+    ok = True
+    first = next(iter(routes))
+    for name in routes:
+        calls, busy_us = host_launch_calls(lambda: routes[name](graph, *args, **kwargs))
+        med = statistics.median(ms[name])
+        dt, dr = pose_gap(out[name][0], out[first][0])
+        same_pruned = torch.equal(out[name][2], out[first][2])
+        print(f"  route {name}: {med:.3f} ms (median of {PG_REPEATS}; turns "
+              f"{', '.join(f'{m:.3f}' for m in ms[name])}), host launch calls "
+              f"{sum((calls or {}).values())} ({json.dumps(calls)}), device busy "
+              f"{busy_us / 1e3:.3f} ms, counted pulls {syncs[name]}, cuSOLVER share "
+              f"{2 * iters * chol_ms / med:.4f}, launches "
+              f"{json.dumps(shape_counts(launches[name]))}; gap to {first} {dt:.3e} m, "
+              f"{dr:.3e} rad, pruning equal {same_pruned}", flush=True)
+        if dt > PG_TOL or dr > PG_TOL or not same_pruned or syncs[name]:
+            ok = False
+    print(f"  cuSOLVER cholesky_ex + cholesky_solve at {6 * n}: {chol_ms:.4f} ms a call "
+          f"(median of 20), {2 * iters} a solve", flush=True)
+    # The graphed route replays the eager kernels' work: the same bits and
+    # the same launches; the plain route launches none of them.
+    same = all(torch.equal(a, b) for a, b in zip(out["kernels"], out["graph"]))
+    kernels = ("pg_linearize", "pg_assemble", "pg_step")
+    print(f"  graphed bit-equal to eager kernels {same}, launches equal "
+          f"{launches['kernels'] == launches['graph']}", flush=True)
+    if (not same or launches["kernels"] != launches["graph"]
+            or missing_kernels(cuda_build, launches["graph"], kernels)
+            or len(missing_kernels(cuda_build, launches["plain"], kernels)) != 3):
+        ok = False
+    if not ok:
+        print(f"step 5c: a route's gap over {PG_TOL}, other pruning, a counted pull, or the "
+              "graphed route not the eager kernels' bits and launches", file=sys.stderr)
+    return ok
+
+
 def shape_counts(counts):
     return {f"{k}{list(s)}": c for (k, s), c in sorted(counts.items())}
 
@@ -1438,10 +1705,11 @@ class DenseStageProbe:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def replay(slam, scans, cuda_build, devmod):
+def replay(slam, scans, cuda_build, devmod, starts=None):
     """Pipelined replay of ``scans`` with the launch and sync counts set to
     0 just before; returns per-scan ms, wall s (finish included), the
-    launch counts by (kernel, shape) and the host syncs."""
+    launch counts by (kernel, shape) and the host syncs.  Each scan's start
+    (host clock) goes into ``starts`` when a list is given."""
     import torch
     cuda_build.launches.clear()
     devmod.host_syncs.count = 0
@@ -1449,6 +1717,8 @@ def replay(slam, scans, cuda_build, devmod):
     t_run = time.perf_counter()
     for points, ts in scans:
         t = time.perf_counter()
+        if starts is not None:
+            starts.append(t)
         slam.process_scan_pipelined(points, ts)
         per_scan_ms.append((time.perf_counter() - t) * 1e3)
     slam.finish_processing()
@@ -1483,7 +1753,8 @@ def main() -> int:
         from open3d_slam_torch.models.async_driver import AsyncSlamDriver
         from open3d_slam_torch.models.slam_wrapper import SlamWrapper
         from open3d_slam_torch.ops import (cuda_build, cuda_gicp, cuda_icp, cuda_knn,
-                                           cuda_normals, cuda_p2p, cuda_solve6, gn_graph)
+                                           cuda_normals, cuda_p2p, cuda_pose_graph,
+                                           cuda_solve6, gn_graph, pose_graph)
         from open3d_slam_torch.parallel import multi_start
         from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
         from open3d_slam_torch.utils import pointcloud as pclib
@@ -1538,7 +1809,10 @@ def main() -> int:
                  Recorder(cuda_build, cuda_knn, "nn_argmin_within"),
                  Recorder(cuda_build, cuda_icp, "p2l_normal_eq"),
                  Recorder(cuda_build, cuda_solve6, "solve6"),
-                 Recorder(cuda_build, cuda_p2p, "p2p_step")]
+                 Recorder(cuda_build, cuda_p2p, "p2p_step"),
+                 Recorder(cuda_build, cuda_pose_graph, "pg_linearize"),
+                 Recorder(cuda_build, cuda_pose_graph, "pg_assemble"),
+                 Recorder(cuda_build, cuda_pose_graph, "pg_step")]
     for rec in recorders:
         rec.install()
     slam = SlamWrapper(params, device="cuda")
@@ -1624,9 +1898,16 @@ def main() -> int:
     slam = SlamWrapper(full, device="cuda")
     slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
     torch.cuda.synchronize()
-    per_scan_ms, wall_s, full_key, syncs = replay(slam, scans, cuda_build, devmod)
+    probe = SolveProbe(pose_graph)
+    probe.install()
+    starts = []
+    per_scan_ms, wall_s, full_key, syncs = replay(slam, scans, cuda_build, devmod, starts)
+    probe.remove()
+    # The scans whose pipelined step ran a solve.
+    solve_scans = [max(i for i, t in enumerate(starts) if t <= c) for c in probe.times]
     poses, ate, rpe = check_trajectory(slam, seq, n, evaluation)
     health = slam.get_health()
+    breakdown = optimization_breakdown(slam.telemetry)
     q = np.percentile(per_scan_ms, [50, 99])
     print(f"replay (full configuration): {n} scans, per-scan p50 {q[0]:.2f} ms, "
           f"p99 {q[1]:.2f} ms, max {max(per_scan_ms):.2f} ms, mean "
@@ -1648,12 +1929,26 @@ def main() -> int:
     if ate.rmse > ATE_LIMIT_M:
         print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
         ok = False
-    for rec in recorders[:4]:
+    for rec in recorders[:4] + recorders[7:]:
         if cuda_build.launch_total(rec.name, full_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
     for rec in recorders:
         rec.frozen = set(rec.inputs)
+
+    # 5c. The closure's pose graph solved again by each route.
+    def eager_kernels(*args, **kwargs):
+        gn_graph.MODE = "eager"
+        try:
+            return pose_graph.optimize(*args, **kwargs)
+        finally:
+            gn_graph.MODE = "graph"
+
+    good = pose_graph_routes(
+        probe, {"plain": pose_graph.optimize_plain, "kernels": eager_kernels,
+                "graph": pose_graph.optimize}, cuda_build, devmod, breakdown,
+        per_scan_ms, solve_scans, name_power)
+    ok = ok and good
 
     # 5a. The dense map on, with step 5's configuration and scans.
     good, dense_key = dense_replay(full, seq, scans, full_poses, full_syncs, here,
@@ -1730,7 +2025,10 @@ def main() -> int:
                                (recorders[3], knn_entry, cuda_knn),
                                (recorders[4], icp_entry, cuda_icp),
                                (recorders[5], solve6_entry, cuda_solve6),
-                               (recorders[6], p2p_entry, cuda_p2p)):
+                               (recorders[6], p2p_entry, cuda_p2p),
+                               (recorders[7], pg_linearize_entry, cuda_pose_graph),
+                               (recorders[8], pg_assemble_entry, cuda_pose_graph),
+                               (recorders[9], pg_step_entry, cuda_pose_graph)):
         for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
             key = (name, shape)
             n_launch = full_key.get(key, by_key.get(key, sum(

@@ -25,8 +25,14 @@ mapper.patch_prepare > target_prep; mapper.register > gn_loop, query_order;
 submap.insert; closure.features (features and odometry constraints of a
 finished submap) > normals, knn; closure.job (one phase of the loop-closure
 job, with the pose-graph solve when a closure is accepted) > target_prep,
-gn_loop, knn.  ``<register>.prep`` is the register stage less its gn_loop:
-the source's covariances and query order, the sweep layout.  A closure stage appears only in windows where a submap finishes.
+gn_loop, knn; optimization (``_finish_loop_closure``, an accepted closure's
+pose-graph round, inside closure.job) > flush_constraints (the prefetched
+odometry constraints read), odometry_constraints, build, solve (the LM
+solve and its one pull; ``closure.features`` has its own
+odometry_constraints, queued only).  ``<register>.prep`` is the register
+stage less its gn_loop: the source's covariances and query order, the sweep
+layout.  A closure stage appears only in windows where a submap finishes,
+the optimization stages only where a closure is accepted.
 The kernels a graph replays are not timed one by one (a synchronisation
 inside a capture would break it): the stage pass prints each kernel's
 launches per scan from ``cuda_build.launches``, the profiler pass their
@@ -43,9 +49,10 @@ import numpy as np
 import torch
 
 from open3d_slam_torch.io import lidar_sim
-from open3d_slam_torch.models import scan_to_map_registration as s2m
+from open3d_slam_torch.models import scan_to_map_registration as s2m, slam_wrapper
 from open3d_slam_torch.models.cloud_registration import CloudRegistrationStrategy
 from open3d_slam_torch.models.odometry import LidarOdometry
+from open3d_slam_torch.models.optimization import OptimizationProblem
 from open3d_slam_torch.models.slam_wrapper import SlamWrapper
 from open3d_slam_torch.models.submap import Submap
 from open3d_slam_torch.ops import cuda_build, cuda_knn, cuda_normals, gn_graph, nn_layout
@@ -135,6 +142,14 @@ def main() -> int:
             lambda q, m, lay, *r: f"knn_kernel[{q.shape[1]}x{lay.target.order.shape[-1]}]")
     st.wrap(SlamWrapper, "compute_features_if_ready", lambda *a: "closure.features")
     st.wrap(SlamWrapper, "_advance_loop_closures", lambda *a: "closure.job")
+    st.wrap(SlamWrapper, "_finish_loop_closure", lambda *a: "optimization")
+    st.wrap(SlamWrapper, "_flush_pending_constraints", lambda *a: ".flush_constraints",
+            default="flush_constraints")
+    st.wrap(slam_wrapper, "compute_odometry_constraints", lambda *a: ".odometry_constraints",
+            default="odometry_constraints")
+    st.wrap(OptimizationProblem, "build_optimization_problem", lambda *a: ".build",
+            default="optimization.build")
+    st.wrap(OptimizationProblem, "solve", lambda *a: ".solve", default="optimization.solve")
     window = scans[WARM_SCANS:WARM_SCANS + MEASURED_SCANS]
     devmod.host_syncs.count = 0
     cuda_build.launches.clear()

@@ -268,19 +268,24 @@ class SlamWrapper:
         if not constraints:
             return
         self.n_loop_closures_accepted += len(constraints)
-        with self.telemetry.timer("optimization"):
-            self._flush_pending_constraints()
-            odom_constraints = list(self.odometry_constraints)
-            compute_odometry_constraints(self.submaps, odom_constraints)
+        timer = self.telemetry.timer
+        with timer("optimization"):
+            with timer("optimization.flush_constraints"):
+                self._flush_pending_constraints()
+            with timer("optimization.odometry_constraints"):
+                odom_constraints = list(self.odometry_constraints)
+                compute_odometry_constraints(self.submaps, odom_constraints)
             opt = self.optimization_problem
-            opt.clear_odometry_constraints()
-            opt.insert_loop_closure_constraints(constraints)
-            opt.insert_odometry_constraints(odom_constraints)
-            opt.build_optimization_problem(self.submaps)
+            with timer("optimization.build"):
+                opt.clear_odometry_constraints()
+                opt.insert_loop_closure_constraints(constraints)
+                opt.insert_odometry_constraints(odom_constraints)
+                opt.build_optimization_problem(self.submaps)
             if self.params.mapper.is_dump_submaps_to_file_before_and_after_loop_closures:
                 self.dump_submaps("before")
                 opt.dump_to_file(os.path.join(self.folder_path, "poseGraph.json"))
-            opt.solve()
+            with timer("optimization.solve"):
+                opt.solve()
             self.last_loop_closure_constraints = constraints
             self.is_optimized_graph_available = True
 

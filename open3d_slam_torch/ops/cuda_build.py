@@ -33,7 +33,7 @@ from open3d_slam_torch.utils.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gicp", "normals", "knn", "icp", "solve6", "p2p_step")
+SOURCES = ("gicp", "normals", "knn", "icp", "solve6", "p2p_step", "pose_graph")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -47,6 +47,12 @@ warm-up and capture hold ``capturing``, which the online driver's ingest
 holds too.  A capture or replay that fails raises; nothing falls back to
 the eager loop.
 
+A program of fixed length, with no ``done`` to read (the pose-graph solve:
+two LM stages of ``max_iterations`` steps, as the JAX package's
+``lax.scan``s), goes through ``run_program``: static input and output
+buffers per key, one warm-up run and then one graph of the whole program
+that writes the output buffers, cloned out at each call.
+
 ``MODE`` selects the path: ``"graph"`` (the default: CUDA tensors replay
 graphs, others run the eager loop), ``"eager"`` (the eager loop everywhere:
 tests and ``chip_smoke.py``'s A/B) or ``"static"`` (the static buffers with
@@ -239,8 +245,78 @@ def run(key: Hashable, inputs: Dict[str, torch.Tensor],
         return type(state)(*(t.clone() for t in state))
 
 
+class _Program:
+    """A fixed-length program on one key's static input and output buffers
+    (the outputs laid out as the first run's): one CUDA graph, after one
+    warm-up run on the side stream whose launches are real and counted, or,
+    without capture, the eager runner.  The graph copies its results into
+    the output buffers, as a loop's chunk does into its state buffers."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor],
+                 program: Callable[[Dict[str, torch.Tensor]], Callable[[], Tuple]],
+                 capture: bool):
+        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
+                       for k, v in inputs.items()}
+        self.load(inputs)
+        body = program(self.inputs)
+        self.capture = capture
+        if capture:
+            stream = _side_stream(next(iter(self.inputs.values())).device)
+            main = torch.cuda.current_stream(stream.device)
+            with capturing:
+                stream.wait_stream(main)
+                with torch.cuda.stream(stream):
+                    first = body()
+                main.wait_stream(stream)
+        else:
+            first = body()
+        self.outputs = tuple(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                                 device=t.device) for t in first)
+
+        def into_outputs():
+            for buf, v in zip(self.outputs, body()):
+                buf.copy_(v)
+
+        if capture:
+            with capturing:
+                run = _Graph(into_outputs, stream)
+        else:
+            run = _Eager(into_outputs)
+        self.runs = {0: run}
+
+    def load(self, inputs: Dict[str, torch.Tensor]):
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
+
+    def run(self) -> Tuple:
+        self.runs[0].replay()
+        return self.outputs
+
+
+def run_program(key: Hashable, inputs: Dict[str, torch.Tensor],
+                program: Callable[[Dict[str, torch.Tensor]], Callable[[], Tuple]]
+                ) -> Tuple:
+    """A program of fixed length (no ``done`` to read: the pose-graph
+    solve) on ``inputs`` through the static buffers of ``key``: one CUDA
+    graph on the card (``MODE == "graph"``), the eager runner otherwise.
+    ``program(x)`` builds, on the dict ``x`` of static buffers, a body that
+    returns a tuple of tensors; the call returns them cloned out."""
+    capture = MODE == "graph"
+    key = (key, capture)
+    with _lock:
+        prog = _entries.get(key)
+        if prog is None:
+            # A key whose capture failed is not kept.
+            prog = _Program(inputs, program, capture)
+            _entries[key] = prog
+        else:
+            prog.load(inputs)
+        return tuple(t.clone() for t in prog.run())
+
+
 def captured() -> Tuple[int, int]:
-    """(loop keys, CUDA graphs) captured in this process."""
+    """(keys, CUDA graphs) captured in this process: the loops' and the
+    fixed-length programs'."""
     loops = [e for e in _entries.values() if e.capture]
     return len(loops), sum(len(e.runs) for e in loops)
 

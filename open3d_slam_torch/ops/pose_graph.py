@@ -16,20 +16,29 @@ moves the drifted submap by its drift once more instead of taking it back
 (``tests/test_torch_loop_closure.py``).  The port keeps Open3D's convention;
 it equals the JAX function on the same graph with each edge's ends swapped.
 
-The 6N x 6N normal matrix is assembled with one-hot einsums, as in the JAX
-package: a fixed-order reduction with no scatter, so no float atomics and
-bit-reproducible solves on the card.  Each stage runs its LM steps as a
-Python loop with the accept test on the device (``torch.where``) and no host
-read; ``cholesky_ex`` skips the host-side error check of
-``torch.linalg.cholesky``.
+One LM iteration is a step on a state, ``PGState(X, damping)``, as the
+ICP loops are (``ops/gn_graph.py``): ``cuda_pose_graph.pg_linearize`` (the
+residuals, line-process weights and per-edge blocks), ``pg_assemble`` (the
+dense 6N x 6N normal equations with the prior and the damping), the dense
+Cholesky factor and solve (``cholesky_ex`` + ``cholesky_solve``, the JAX
+package's ``cho_factor``/``cho_solve``), and ``pg_step`` (the retraction, the
+cost at it, the accept test and the damping update).  On CUDA tensors those
+are hand-written kernels (``csrc/pose_graph.cu``) and the whole two-stage
+solve, the prune between the stages and the final weights included, is one
+CUDA graph per key, captured at its first call (``gn_graph.run_program``):
+the JAX ``lax.scan``s have a fixed length and no convergence test, so the
+graph reads nothing back; the caller's one pull is the only one.  On the CPU
+the same program runs the kernels' plain versions, the port's earlier eager
+code.  ``optimize_plain`` runs those on any device (the card's A/B).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from open3d_slam_torch.ops import cuda_pose_graph, gn_graph
 from open3d_slam_torch.utils import se3
 
 
@@ -47,24 +56,75 @@ class PoseGraphData:
     edge_mask: torch.Tensor         # (E,) bool
 
 
-def _edge_residual(X, e_a, e_b, e_T):
-    """r = log(T^-1 X_a^-1 X_b) per edge, (E, 6); ``optimize`` passes
-    a = target, b = source."""
-    rel = se3.inverse(X[e_a]) @ X[e_b]
-    return se3.se3_log(se3.inverse(e_T) @ rel)
+class PGState(NamedTuple):
+    X: torch.Tensor        # (N, 4, 4) node poses
+    damping: torch.Tensor  # () LM damping
 
 
-def _adjoint(T: torch.Tensor) -> torch.Tensor:
-    """SE(3) adjoint (..., 6, 6) for xi = (omega, v) ordering."""
-    R = T[..., :3, :3]
-    tx = se3.hat(T[..., :3, 3])
-    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
-    bot = torch.cat([tx @ R, R], dim=-1)
-    return torch.cat([top, bot], dim=-2)
+_PLAIN = (cuda_pose_graph.pg_linearize_plain, cuda_pose_graph.pg_assemble_plain,
+          cuda_pose_graph.pg_step_plain)
 
 
-def _quad(r, info):
-    return torch.einsum("ei,eij,ej->e", r, info, r)
+def _routes(plain: bool):
+    if plain:
+        return _PLAIN
+    # Looked up at each call, so that a stand-in for a wrapper sees it.
+    return (cuda_pose_graph.pg_linearize, cuda_pose_graph.pg_assemble,
+            cuda_pose_graph.pg_step)
+
+
+def _program(g: Dict[str, torch.Tensor], preference_loop_closure: float,
+             edge_prune_threshold: float, reference_node: int, max_iterations: int,
+             damping_init: float, plain: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two-stage solve on the graph's tensors ``g`` (``PoseGraphData``'s
+    fields).  Issues no host read and no host-to-device copy, so that a
+    CUDA graph can hold it."""
+    linearize, assemble, step = _routes(plain)
+    dtype = g["node_poses"].dtype        # float32; float64 for a plain reference
+    like = dict(dtype=dtype, device=g["node_poses"].device)
+    N = g["node_poses"].shape[0]
+    # The JAX function's arithmetic with the ends swapped, so that the
+    # residual is Open3D's log(T^-1 X_t^-1 X_s) (module docstring).
+    e_a, e_b = g["edge_target"].long(), g["edge_source"].long()
+    e_T, e_info, e_unc = g["edge_transform"], g["edge_information"], g["edge_uncertain"]
+    edge_mask = g["edge_mask"]
+
+    n_edges = torch.clamp(edge_mask.to(dtype).sum(), min=1.0)
+    avg_corr = torch.where(edge_mask, e_info[:, 5, 5], torch.zeros((), **like)).sum() / n_edges
+    mu = float(preference_loop_closure) * avg_corr
+    # A comparison, not a one-hot of ``torch.tensor(reference_node)``: that
+    # copies from the host, which a capture refuses.
+    ref = (torch.arange(N, device=like["device"]) == int(reference_node)).to(dtype)
+    prior = ref * 1e6 + (1.0 - g["node_mask"].to(dtype)) * 1e6 + 1e-8
+
+    def lin(X, mask):
+        return linearize(X, e_a, e_b, e_T, e_info, e_unc, mask, mu)
+
+    def iteration(state: PGState, mask) -> PGState:
+        blocks = lin(state.X, mask)
+        Hd, b, cost = assemble(blocks, e_a, e_b, prior, state.damping)
+        L, _ = torch.linalg.cholesky_ex(Hd)
+        delta = torch.cholesky_solve(-b[:, None], L)[:, 0]
+        return PGState(*step(state.X, delta, e_a, e_b, e_T, e_info, blocks.w, cost,
+                             state.damping))
+
+    def run_lm(X, mask):
+        state = PGState(X, torch.full((), float(damping_init), **like))
+        for _ in range(max_iterations):
+            state = iteration(state, mask)
+        return state.X
+
+    X1 = run_lm(g["node_poses"], edge_mask)
+    w1 = lin(X1, edge_mask).w
+    pruned = edge_mask & e_unc & (w1 < float(edge_prune_threshold))
+    mask2 = edge_mask & ~pruned
+    X2 = run_lm(X1, mask2)
+    return X2, lin(X2, mask2).w, pruned
+
+
+def _fields(graph: PoseGraphData) -> Dict[str, torch.Tensor]:
+    return {f.name: getattr(graph, f.name) for f in dataclasses.fields(graph)}
 
 
 def optimize(graph: PoseGraphData, max_correspondence_distance: float,
@@ -74,72 +134,31 @@ def optimize(graph: PoseGraphData, max_correspondence_distance: float,
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Optimised node poses.  Returns (poses (N, 4, 4), edge weights (E,),
     pruned (E,) bool), as the JAX function.  ``max_correspondence_distance``
-    is part of Open3D's option struct but does not enter the line process."""
+    is part of Open3D's option struct but does not enter the line process.
+    On the card (``gn_graph.MODE == "graph"``) the solve replays one CUDA
+    graph per key: the capacities, the iterations, the device and the
+    scalars, which the graph holds as constants."""
+    scalars = (float(preference_loop_closure), float(edge_prune_threshold),
+               int(reference_node), int(max_iterations), float(damping_init))
+    inputs = _fields(graph)
     dev = graph.node_poses.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    N = graph.node_poses.shape[0]
-    # The JAX function's arithmetic with the ends swapped, so that the
-    # residual is Open3D's log(T^-1 X_t^-1 X_s) (module docstring).
-    e_src, e_tgt = graph.edge_target.long(), graph.edge_source.long()
-    e_T, e_info, e_unc = graph.edge_transform, graph.edge_information, graph.edge_uncertain
-    zero = torch.zeros((), **f32)
+    if gn_graph.uses_static_buffers(dev):
+        key = ("pose_graph", graph.node_poses.shape[0], graph.edge_mask.shape[0], dev,
+               *scalars)
+        return gn_graph.run_program(key, inputs, lambda x: lambda: _program(x, *scalars))
+    return _program(inputs, *scalars)
 
-    n_edges = torch.clamp(graph.edge_mask.to(torch.float32).sum(), min=1.0)
-    avg_corr = torch.where(graph.edge_mask, e_info[:, 5, 5], zero).sum() / n_edges
-    mu = float(preference_loop_closure) * avg_corr
 
-    S = torch.nn.functional.one_hot(e_src, N).to(torch.float32)     # (E, N)
-    Tm = torch.nn.functional.one_hot(e_tgt, N).to(torch.float32)
-    ref = torch.nn.functional.one_hot(torch.tensor(int(reference_node), device=dev),
-                                      N).to(torch.float32)
-    prior = ref * 1e6 + (1.0 - graph.node_mask.to(torch.float32)) * 1e6 + 1e-8
-    prior_diag = torch.diag(torch.repeat_interleave(prior, 6))
-
-    def weights(r, e_mask):
-        w_lc = (mu / (mu + _quad(r, e_info))) ** 2
-        w = torch.where(e_unc, w_lc, torch.ones((), **f32))
-        return torch.where(e_mask, w, zero)
-
-    def build_normal_eqs(X, w):
-        r = _edge_residual(X, e_src, e_tgt, e_T)                       # (E, 6)
-        rel = se3.inverse(X[e_src]) @ X[e_tgt]
-        J_s = -_adjoint(se3.inverse(rel))                               # (E, 6, 6)
-        lam = e_info * w[:, None, None]
-        H_ss = torch.einsum("eki,ekl,elj->eij", J_s, lam, J_s)
-        H_st = torch.einsum("eki,ekj->eij", J_s, lam)
-        b_s = torch.einsum("eki,ekl,el->ei", J_s, lam, r)
-        b_t = torch.einsum("eij,ej->ei", lam, r)
-        H = (torch.einsum("ea,eb,eij->aibj", S, S, H_ss) +
-             torch.einsum("ea,eb,eij->aibj", S, Tm, H_st) +
-             torch.einsum("ea,eb,eij->aibj", Tm, S, H_st.transpose(-1, -2)) +
-             torch.einsum("ea,eb,eij->aibj", Tm, Tm, lam))
-        b = torch.einsum("ea,ei->ai", S, b_s) + torch.einsum("ea,ei->ai", Tm, b_t)
-        H = H.reshape(N * 6, N * 6) + prior_diag
-        cost = (w * _quad(r, e_info)).sum()
-        return H, b.reshape(N * 6), cost
-
-    def run_lm(X, e_mask):
-        damping = torch.full((), float(damping_init), **f32)
-        for _ in range(max_iterations):
-            w = weights(_edge_residual(X, e_src, e_tgt, e_T), e_mask)
-            H, b, cost = build_normal_eqs(X, w)
-            Hd = H + damping * torch.diag(torch.diagonal(H))
-            L, _ = torch.linalg.cholesky_ex(Hd)
-            delta = torch.cholesky_solve(-b[:, None], L)[:, 0]
-            X_new = X @ se3.se3_exp(delta.reshape(N, 6))
-            r_new = _edge_residual(X_new, e_src, e_tgt, e_T)
-            accept = (w * _quad(r_new, e_info)).sum() < cost
-            X = torch.where(accept, X_new, X)
-            damping = torch.clamp(torch.where(accept, damping * 0.5, damping * 4.0),
-                                  1e-9, 1e6)
-        return X
-
-    X1 = run_lm(graph.node_poses, graph.edge_mask)
-    w1 = weights(_edge_residual(X1, e_src, e_tgt, e_T), graph.edge_mask)
-    pruned = graph.edge_mask & e_unc & (w1 < float(edge_prune_threshold))
-    mask2 = graph.edge_mask & ~pruned
-    X2 = run_lm(X1, mask2)
-    return X2, weights(_edge_residual(X2, e_src, e_tgt, e_T), mask2), pruned
+def optimize_plain(graph: PoseGraphData, max_correspondence_distance: float,
+                   preference_loop_closure: float, edge_prune_threshold: float,
+                   reference_node: int, max_iterations: int = 25,
+                   damping_init: float = 1e-4
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``optimize`` through the kernels' plain versions on any device, eager:
+    the route the card ran before the kernels, kept for comparisons."""
+    return _program(_fields(graph), float(preference_loop_closure),
+                    float(edge_prune_threshold), int(reference_node), int(max_iterations),
+                    float(damping_init), plain=True)
 
 
 def information_matrix_from_correspondences(target_points: torch.Tensor,
