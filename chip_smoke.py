@@ -75,7 +75,9 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      registrations (the ``SlamParameters`` default) and checks the ATE;
   8b. replays them with point-to-point ICP for both registrations, graphed
      and eager (bit-equal), and holds the ATE to a limit taken from a
-     witness: the same replay with the loop's earlier host SVD;
+     witness: the same replay with the loop's earlier host SVD; then the
+     device's busy ms a scan and the Kabsch step's share over the next
+     scans (``torch.profiler``);
   8a. the scale-out layer (``parallel/``) in a 1-rank NCCL group (the card
      is one H100, and NCCL refuses two ranks on one device): the JAX
      package's ``bench_batched_icp`` batch (128 scan pairs, 1024-point
@@ -96,7 +98,10 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      of the loops (``cuda_solve6``, at B > 1) bit-equal to its plain version;
      the point-to-point loop's Kabsch step (``cuda_p2p``) within its
      tolerance of its plain version, the library chain it replaced, with
-     the synchronising operations of one call of each; the pose-graph LM
+     the synchronising operations of one call of each, its cluster size,
+     registers and stack frame, and the one-block design's time on the same
+     inputs when a ``git archive`` of commit 3b38a95 is unpacked in
+     ``_archive/parent``; the pose-graph LM
      step's three kernels (``cuda_pose_graph``) within theirs, with one
      ``index_add_`` of the edge blocks timed beside the assembly;
   10. prints a ``kernels`` JSON line, the card line, and last the device
@@ -151,6 +156,7 @@ P2L_SCANS = 100
 # off and PointToPointIcp for both registrations, on an H100 80GB HBM3
 # (700 W).  Point-to-point ICP drifts metres on these 16-ring scans.
 P2P_SCANS = 100
+P2P_PROFILED_SCANS = 20     # step 8b's device time a scan: the scans after those
 P2P_WITNESS_ATE_M = 4.956506018874437
 P2P_ATE_FACTOR, P2P_ATE_MARGIN_M = 1.5, 0.02
 # Step 8a: bench.py's bench_batched_icp (batch, source, target points,
@@ -582,14 +588,39 @@ def solve6_entry(cuda_solve6, shape, n_launch, args, kwargs):
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+# The Kabsch step's one-block design (commit 3b38a95's csrc/p2p_step.cu),
+# timed beside the kernel on the same inputs when a `git archive` of that
+# commit is unpacked here (under _archive/, which .gitignore lists).
+P2P_ONE_BLOCK = os.path.join("_archive", "parent", "open3d_slam_torch", "csrc", "p2p_step.cu")
+_one_block = {}
+
+
+def p2p_one_block():
+    """The one-block design's launcher (``cli.p2p_split``), or None when its
+    source is not in this checkout."""
+    if "run" not in _one_block:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), P2P_ONE_BLOCK)
+        _one_block["run"] = None
+        if os.path.exists(path):
+            from open3d_slam_torch.cli import p2p_split
+            with open(path) as f:
+                libs, logs = p2p_split.build({"one_block": f.read()})
+            _one_block["run"] = p2p_split.launcher(libs["one_block"])
+            print(f"  one-block design built from {P2P_ONE_BLOCK}: ptxas {logs['one_block']}")
+    return _one_block["run"]
+
+
 def p2p_entry(cuda_p2p, shape, n_launch, args, kwargs):
     """The Kabsch step of the point-to-point loop (``cuda_p2p.p2p_step``) at
     one shape the runs gave it: R within ``P2P_TOL`` of the plain version
     (the moments, ``torch.linalg.svd`` and ``torch.linalg.det`` on the card:
     the library chain the loop ran before, with its SVD on the host), t
     within ``P2P_TOL`` (1 + |p_bar|); the synchronising operations torch's
-    sync debug mode reports in one call of each."""
+    sync debug mode reports in one call of each; the cluster size, the
+    kernel's registers and stack frame from its build log, and, when its
+    source is here, the one-block design's time on the same inputs."""
     import torch
+    from open3d_slam_torch.ops import cuda_build
     pts, q, w = args
     got = cuda_p2p.p2p_step(pts, q, w)
     want = cuda_p2p.p2p_step_plain(pts, q, w)
@@ -602,6 +633,14 @@ def p2p_entry(cuda_p2p, shape, n_launch, args, kwargs):
     _, kernel_syncs = DenseStageProbe.syncs_in(lambda: cuda_p2p.p2p_step(pts, q, w))
     _, plain_syncs = DenseStageProbe.syncs_in(lambda: cuda_p2p.p2p_step_plain(pts, q, w))
     ok = r_err <= P2P_TOL and t_rel <= P2P_TOL and not kernel_syncs
+    one_block = p2p_one_block()
+    if one_block is None:
+        before = "one-block design not in this checkout"
+    else:
+        old = one_block(pts, q, w)
+        old_err = float((old[:, :3, :3] - want[:, :3, :3]).abs().max())
+        before = (f"one-block design {time_ms(lambda: one_block(pts, q, w), 20):.4f} ms in this "
+                  f"run, R err {old_err:.3e}")
     ms = time_ms(lambda: cuda_p2p.p2p_step(pts, q, w), 20)
     plain = time_ms(lambda: cuda_p2p.p2p_step_plain(pts, q, w), 3)
     b, m = shape
@@ -610,11 +649,13 @@ def p2p_entry(cuda_p2p, shape, n_launch, args, kwargs):
     # products and sums); ~2000 float64 ones a hypothesis's SVD, counted at
     # the float32 rate (a lower bound).  pts, q and w read once, dT written.
     b_ms, b_by = bound_ms(b * m * 25 + b * 64, 31.0 * inliers + 2000.0 * b)
-    print(f"p2p_step {b}x{m}: R err {r_err:.3e}, t err {t_rel:.3e} of 1 + |p_bar| (tol "
-          f"{P2P_TOL:g} each), max abs err {err:.3e}; {ms:.4f} ms vs plain (moments + "
-          f"torch.linalg.svd + det) {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {inliers} "
-          f"inliers); synchronising operations in one call: kernel {len(kernel_syncs)}, "
-          f"plain {len(plain_syncs)}", flush=True)
+    print(f"p2p_step {b}x{m}: cluster of {cuda_p2p.cluster_size(m)} CTAs a hypothesis, ptxas "
+          f"{cuda_build.ptxas_summary(cuda_build.build_logs.get('p2p_step', ''))}; R err "
+          f"{r_err:.3e}, t err {t_rel:.3e} of 1 + |p_bar| (tol {P2P_TOL:g} each), max abs err "
+          f"{err:.3e}; {ms:.4f} ms ({before}), bound {b_ms:.6f} ms ({b_by}; {inliers} "
+          f"inliers), plain (moments + torch.linalg.svd + det) {plain:.4f} ms; synchronising "
+          f"operations in one call: kernel {len(kernel_syncs)}, plain {len(plain_syncs)}",
+          flush=True)
     return ok, {"name": f"p2p_step[{b}x{m}]", "route": "cuda",
                 "source": "open3d_slam_torch/csrc/p2p_step.cu",
                 "replaces": "open3d_slam_tpu/ops/registration.py:105",
@@ -1150,6 +1191,9 @@ def p2p_tracking(params, seq, scans, cuda_build, devmod, evaluation, gn_graph, S
             per_scan_ms, _, key, syncs = replay(slam, scans[:P2P_SCANS], cuda_build, devmod)
             poses, ate, _ = check_trajectory(slam, seq, P2P_SCANS, evaluation)
             runs[mode] = (float(np.median(per_scan_ms)), key, syncs, poses_sha1(poses), ate.rmse)
+            if mode == "graph":
+                busy, kabsch, n_kabsch = device_ms_per_scan(
+                    slam, scans[P2P_SCANS:P2P_SCANS + P2P_PROFILED_SCANS], "p2p_step_kernel")
             del slam
     finally:
         gn_graph.MODE = "graph"
@@ -1160,6 +1204,9 @@ def p2p_tracking(params, seq, scans, cuda_build, devmod, evaluation, gn_graph, S
               f"ms, host syncs {syncs / P2P_SCANS:.2f} per scan, poses sha1 {digest}, ATE rmse "
               f"{ate:.4f} m; launches {json.dumps(shape_counts(key))}", flush=True)
     counts = runs["graph"][1]
+    print(f"point-to-point tracking (graph), the next {P2P_PROFILED_SCANS} scans under "
+          f"torch.profiler: device busy {busy:.4f} ms a scan, of which the Kabsch step "
+          f"{kabsch:.4f} ms ({n_kabsch:.2f} launches a scan)", flush=True)
     print(f"point-to-point tracking: graphed bit-equal to eager (poses, launches, host syncs) "
           f"{same}; ATE {runs['graph'][4]:.4f} m, limit {limit:.4f} m ({P2P_ATE_FACTOR:g} x "
           f"the host-SVD witness's {P2P_WITNESS_ATE_M:.4f} m + {P2P_ATE_MARGIN_M:g} m); "
@@ -1169,6 +1216,31 @@ def p2p_tracking(params, seq, scans, cuda_build, devmod, evaluation, gn_graph, S
     if missing:
         print(f"point-to-point tracking never launched {missing}", file=sys.stderr)
     return same and runs["graph"][4] <= limit and not missing, counts
+
+
+def device_ms_per_scan(slam, scans, kernel):
+    """Pipelined replay of ``scans`` under ``torch.profiler``: (the device's
+    busy ms a scan, the union of its kernels' and copies' intervals; the
+    device ms a scan of kernels whose name holds ``kernel``; their launches
+    a scan)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for points, ts in scans:
+            slam.process_scan_pipelined(points, ts)
+        slam.finish_processing()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_us, end = 0.0, -1.0
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.device_type == cuda):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    mine = [e for e in prof.key_averages() if e.device_type == cuda and kernel in e.key]
+    n = len(scans)
+    return (busy_us / 1e3 / n, sum(e.self_device_time_total for e in mine) / 1e3 / n,
+            sum(e.count for e in mine) / n)
 
 
 def dense_replay(full, seq, scans, full_poses, full_syncs, here, cuda_build, devmod,

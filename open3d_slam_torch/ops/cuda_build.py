@@ -112,6 +112,9 @@ def _lib_path(name: str) -> str:
 def _start_build(name: str) -> Optional[subprocess.Popen]:
     out = _lib_path(name)
     if os.path.exists(out):
+        if name not in build_logs and os.path.exists(out + ".log"):
+            with open(out + ".log") as f:
+                build_logs[name] = f.read()
         return None
     nvcc = nvcc_path()
     if nvcc is None:
@@ -132,6 +135,8 @@ def _finish_build(name: str, proc: subprocess.Popen):
     tmp, out = proc.target
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    with open(out + ".log", "w") as f:        # read back when the library is reused
+        f.write(log)
     os.replace(tmp, out)
 
 
@@ -150,6 +155,13 @@ def build_all(names: List[str] = SOURCES) -> Dict[str, str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return dict(build_logs)
+
+
+def ptxas_summary(log: str) -> str:
+    """The registers, stack frame and spills that ``-Xptxas -v`` reports in
+    an nvcc log, one kernel after another."""
+    return "; ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
+                     if re.search(r"stack frame|registers", line))
 
 
 def load(name: str) -> ctypes.CDLL:

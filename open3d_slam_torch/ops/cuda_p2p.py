@@ -27,6 +27,18 @@ import torch
 
 from open3d_slam_torch.ops import cuda_build
 
+# The kernel runs a thread-block cluster of ``cluster_size(M)`` CTAs per
+# hypothesis, each on a contiguous chunk of the points.
+CLUSTER_CHUNK = 2048     # points a CTA takes before the cluster grows
+MAX_CLUSTER = 8          # the portable cluster size
+
+
+def cluster_size(m: int) -> int:
+    """CTAs per hypothesis for M = ``m`` points: min(8, ceil(M / 2048)),
+    at least 1.  It depends on M alone, never on B, so a hypothesis's sums
+    run in the same order alone as in any batch."""
+    return max(1, min(MAX_CLUSTER, -(-m // CLUSTER_CHUNK)))
+
 
 def p2p_moments(pts: torch.Tensor, q: torch.Tensor, w: torch.Tensor):
     """Weighted centroids and cross-covariance of the Kabsch step: pts, q
@@ -63,11 +75,12 @@ def _launch_p2p(pts: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Te
     lib = cuda_build.load("p2p_step")
     fn = lib.p2p_step_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     b, m, _ = pts.shape
     out = torch.empty((b, 4, 4), dtype=torch.float32, device=pts.device)
     stream = torch.cuda.current_stream(pts.device).cuda_stream
-    err = fn(pts.data_ptr(), q.data_ptr(), w.data_ptr(), out.data_ptr(), b, m, stream)
+    err = fn(pts.data_ptr(), q.data_ptr(), w.data_ptr(), out.data_ptr(), b, m,
+             cluster_size(m), stream)
     cuda_build.check(err, "p2p_step")
     return out
 

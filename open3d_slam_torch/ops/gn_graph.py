@@ -45,7 +45,8 @@ Even so, a host-to-device copy that another thread issues during a capture
 crashed torch (a segfault at ``capture_end``, on the card's torch 2.11), so
 warm-up and capture hold ``capturing``, which the online driver's ingest
 holds too.  A capture or replay that fails raises; nothing falls back to
-the eager loop.
+the eager loop.  A failed capture leaves the calling thread on its own
+streams and retires the side stream (``_Graph``).
 
 A program of fixed length, with no ``done`` to read (the pose-graph solve:
 two LM stages of ``max_iterations`` steps, as the JAX package's
@@ -140,15 +141,49 @@ class _Eager:
         self.replay = body
 
 
+def _retire(stream: torch.cuda.Stream):
+    """Stop using ``stream`` for captures: the next capture on its device
+    starts on a fresh side stream, with fresh kernel scratch."""
+    if _streams.get(stream.device) is stream:
+        del _streams[stream.device]
+    nn_layout.drop_scratch(stream.device, stream.cuda_stream)
+
+
 class _Graph:
-    """A chunk captured into a CUDA graph on the side stream."""
+    """A chunk captured into a CUDA graph on the side stream.
+
+    A capture that fails raises from ``capture_end`` inside
+    ``torch.cuda.graph.__exit__``, which then never leaves the side stream
+    (torch restores the caller's stream only after a capture that ended),
+    never ends the routing of allocations to the graph's private pool and
+    never releases that pool.  So on failure this restores the caller's
+    current streams, ends the routing, releases the pool, retires the side
+    stream and raises again."""
 
     def __init__(self, body: Callable[[], None], stream: torch.cuda.Stream):
         self.graph = torch.cuda.CUDAGraph()
+        # The caller's current streams, on the current device and on the
+        # capture's, as torch.cuda.stream saves them.
+        callers = (torch.cuda.current_stream(), torch.cuda.current_stream(stream.device))
+        pool = torch.cuda.graph_pool_handle()
         with cuda_build.graph_launches() as counts:
-            with torch.cuda.graph(self.graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                body()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    body()
+            except BaseException:
+                if torch.cuda.current_stream(stream.device) == stream:
+                    # capture_end raised: nothing of the capture was undone.
+                    torch.cuda.set_stream(callers[1])
+                    torch.cuda.set_stream(callers[0])
+                    for release in (torch._C._cuda_endAllocateToPool,
+                                    torch._C._cuda_releasePool):
+                        try:
+                            release(stream.device.index, pool)
+                        except RuntimeError:    # ended, or never begun
+                            pass
+                _retire(stream)
+                raise
         self.launches = counts
 
     def replay(self):

@@ -267,3 +267,9 @@ def scratch(device: torch.device, stream: int, b: int, m: int
         tickets = torch.zeros(max(b, 1024), dtype=torch.int32, device=device)
     _scratch[k] = (keys, tickets)
     return keys, tickets
+
+
+def drop_scratch(device: torch.device, stream: int):
+    """Forget the scratch of ``stream`` on ``device`` (a graph captured with
+    it keeps its own reference)."""
+    _scratch.pop((device, stream), None)

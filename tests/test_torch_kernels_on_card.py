@@ -863,20 +863,56 @@ def test_graphed_loop_equals_eager_loop_on_card(cuda_device, rng, monkeypatch, k
     gn_graph.clear()
 
 
+def _refuse_a_capture(rng, dev, monkeypatch):
+    """Runs a point-to-plane loop whose iteration reads the host, which its
+    capture refuses: the run raises.  Returns the loop's ``run()``, with
+    the iteration restored."""
+    from open3d_slam_torch.ops import registration as treg
+    run = _loop_problem(rng, dev, "p2l", 1, 4096, 16384, 50)
+    solve6 = treg._solve6
+
+    def reads_the_host(JtJ, Jtr):
+        float(JtJ.sum())
+        return solve6(JtJ, Jtr)
+
+    monkeypatch.setattr(treg, "_solve6", reads_the_host)
+    with pytest.raises(RuntimeError):
+        run()
+    monkeypatch.setattr(treg, "_solve6", solve6)
+    return run
+
+
 @pytest.mark.cuda
-def test_pose_graph_capture_on_a_worker_thread_on_card(cuda_device, rng, monkeypatch):
-    """The solve captured and replayed on a worker thread while this thread
-    copies to the card outside its captures (``gn_graph.capturing``), equal
-    to the eager kernels.  It runs before ``test_failed_capture_raises_on_card``:
-    placed after it, it read garbage from its graph when the whole file ran,
-    though it passes alone and in a scripted replay of the same sequence
-    (an open fault, ROADMAP.md section 3)."""
+def test_failed_capture_raises_on_card(cuda_device, rng, monkeypatch):
+    """A capture that CUDA refuses (a host read inside the iteration)
+    raises, keeps no half-made key, leaves this thread on the stream it was
+    on, and falls back to nothing; the next call captures anew and equals
+    the eager loop."""
+    from open3d_slam_torch.ops import gn_graph
+    gn_graph.clear()
+    before = torch.cuda.current_stream(cuda_device)
+    run = _refuse_a_capture(rng, cuda_device, monkeypatch)
+    assert gn_graph.captured() == (0, 0)
+    assert torch.cuda.current_stream(cuda_device) == before
+    monkeypatch.setattr(gn_graph, "MODE", "eager")
+    want = run()
+    monkeypatch.setattr(gn_graph, "MODE", "graph")
+    assert _same_result(run(), want)
+    assert gn_graph.captured() == (1, 3)
+    gn_graph.clear()
+
+
+def _pose_graph_worker(rng, dev, monkeypatch):
+    """The pose-graph solve, eagerly on this thread, then three times on a
+    worker thread (captured at its first call, replayed after) while this
+    thread copies a scan to the card between the worker's captures
+    (``gn_graph.capturing``).  Returns (the eager solve, the worker's
+    solves), not synchronised."""
     import threading
     import time
     from open3d_slam_torch.ops import gn_graph, pose_graph as pg
     from open3d_slam_torch.utils.device import to_device
-    gn_graph.clear()
-    g = _pg_graph(rng, cuda_device, 128, 512)
+    g = _pg_graph(rng, dev, 128, 512)
     monkeypatch.setattr(gn_graph, "MODE", "eager")
     want = pg.optimize(g, *PG_ARGS)
     monkeypatch.setattr(gn_graph, "MODE", "graph")
@@ -894,40 +930,71 @@ def test_pose_graph_capture_on_a_worker_thread_on_card(cuda_device, rng, monkeyp
     deadline = time.monotonic() + 120.0
     while t.is_alive() and time.monotonic() < deadline:
         with gn_graph.capturing:
-            to_device(scan, cuda_device).sum()
+            to_device(scan, dev).sum()
     t.join(timeout=10.0)
     assert not t.is_alive(), "the worker did not finish within its time"
     assert "error" not in out, out.get("error")
-    gaps = [[float((p.double() - q.double()).abs().max()) for p, q in zip(r, want)]
-            for r in out["res"]]
-    assert all(all(torch.equal(p, q) for p, q in zip(r, want)) for r in out["res"]), gaps
-    gn_graph.clear()
+    return want, out["res"]
+
+
+def _solve_gaps(want, res):
+    return [[float((p.double() - q.double()).abs().max()) for p, q in zip(r, want)]
+            for r in res]
+
+
+def _solves_equal(want, res):
+    return [all(torch.equal(p, q) for p, q in zip(r, want)) for r in res]
 
 
 @pytest.mark.cuda
-def test_failed_capture_raises_on_card(cuda_device, rng, monkeypatch):
-    """A capture that CUDA refuses (a host read inside the iteration)
-    raises, keeps no half-made key, and falls back to nothing; the next
-    call captures anew and equals the eager loop."""
-    from open3d_slam_torch.ops import gn_graph, registration as treg
+def test_failed_capture_then_worker_thread_solves_on_card(cuda_device, rng, monkeypatch):
+    """A refused capture, then the pose-graph solve captured and replayed on
+    a worker thread, in one function so that no order of the tests can hide
+    what the first leaves behind.  The refused capture raises, keeps no key,
+    leaves this thread on the stream it was on and retires the side stream
+    with its kernel scratch; the worker's solves, compared on this thread's
+    stream without a synchronisation, are bit-equal to the eager kernels.
+    (Before the repair this thread stayed on the side stream, and the
+    comparison read the worker's results before the worker's stream had
+    written them.)"""
+    from open3d_slam_torch.ops import gn_graph
     gn_graph.clear()
-    run = _loop_problem(rng, cuda_device, "p2l", 1, 4096, 16384, 50)
-    solve6 = treg._solve6
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side = gn_graph._side_stream(dev)
+    before = torch.cuda.current_stream(dev)
+    _refuse_a_capture(rng, cuda_device, monkeypatch)
+    problems = []
+    if torch.cuda.current_stream(dev) != before:
+        problems.append(f"after the refused capture this thread is on stream "
+                        f"{torch.cuda.current_stream(dev)}, not {before} (the side stream is "
+                        f"{side})")
+    if gn_graph._streams.get(dev) is side or (dev, side.cuda_stream) in nn_layout._scratch:
+        problems.append("the side stream of the refused capture was not retired")
+    if gn_graph.captured() != (0, 0):
+        problems.append(f"the refused capture kept {gn_graph.captured()}")
+    want, res = _pose_graph_worker(rng, cuda_device, monkeypatch)
+    gaps = _solve_gaps(want, res)
+    equal = _solves_equal(want, res)
+    if not all(equal):
+        torch.cuda.synchronize()
+        problems.append(f"the worker's solves equal the eager one: {equal}, largest gaps "
+                        f"{gaps}; after a device synchronize: {_solves_equal(want, res)}")
+    gn_graph.clear()
+    assert not problems, problems
 
-    def reads_the_host(JtJ, Jtr):
-        float(JtJ.sum())
-        return solve6(JtJ, Jtr)
 
-    monkeypatch.setattr(treg, "_solve6", reads_the_host)
-    with pytest.raises(RuntimeError):
-        run()
-    assert gn_graph.captured() == (0, 0)
-    monkeypatch.setattr(treg, "_solve6", solve6)
-    monkeypatch.setattr(gn_graph, "MODE", "eager")
-    want = run()
-    monkeypatch.setattr(gn_graph, "MODE", "graph")
-    assert _same_result(run(), want)
-    assert gn_graph.captured() == (1, 3)
+@pytest.mark.cuda
+def test_pose_graph_capture_on_a_worker_thread_on_card(cuda_device, rng, monkeypatch):
+    """The solve captured and replayed on a worker thread while this thread
+    copies to the card outside its captures (``gn_graph.capturing``), equal
+    to the eager kernels.  It runs after ``test_failed_capture_raises_on_card``:
+    a failed capture once left this thread on the side stream, and the
+    comparisons below then read the worker's results before its stream had
+    written them (ROADMAP.md section 3)."""
+    from open3d_slam_torch.ops import gn_graph
+    gn_graph.clear()
+    want, res = _pose_graph_worker(rng, cuda_device, monkeypatch)
+    assert all(_solves_equal(want, res)), _solve_gaps(want, res)
     gn_graph.clear()
 
 
@@ -996,7 +1063,8 @@ P2P_TOL = 1e-5   # R entries; t within P2P_TOL (1 + |p_bar|), as tests/test_torc
 def _p2p_inputs(rng, dev, b, m):
     """Correspondences of ``b`` hypotheses: rotated, shifted and noisy
     copies of anisotropic clouds, 80% inliers; with b > 3 the last three
-    are a reflection (det H < 0), a planar source (rank 2) and no inliers."""
+    are a reflection (det H < 0), a planar source (rank 2) and no inliers,
+    and with b > 4 the fourth from last is a noise-free line (rank 1)."""
     pts = rng.normal(size=(b, m, 3)) * np.array([4.0, 2.5, 1.0]) + rng.normal(
         scale=10.0, size=(b, 1, 3))
     ang = rng.uniform(-0.4, 0.4, size=b)
@@ -1008,37 +1076,68 @@ def _p2p_inputs(rng, dev, b, m):
     if b > 3:
         pts[-2, :, 2] = 0.0
         w[-1] = False
-    q = np.einsum("bij,bmj->bmi", R, pts) + rng.normal(scale=0.5, size=(b, 1, 3)) + \
-        rng.normal(scale=0.03, size=(b, m, 3))
+    shift = rng.normal(scale=0.5, size=(b, 1, 3))
+    q = np.einsum("bij,bmj->bmi", R, pts) + shift + rng.normal(scale=0.03, size=(b, m, 3))
     if b > 3:
         q[-3, :, 2] = -q[-3, :, 2]
+    if b > 4:
+        d = rng.normal(size=3)
+        pts[-4] = pts[-4].mean(0) + rng.normal(scale=2.0, size=(m, 1)) * (d / np.linalg.norm(d))
+        q[-4] = pts[-4] @ R[-4].T + shift[-4]
     return tuple(torch.from_numpy(a).to(dev) for a in (pts.astype(np.float32),
                                                        q.astype(np.float32), w))
 
 
+# The path's shapes (the mid stage's 64 x 1024, the tracking scans' 1 x 16384
+# and 1 x 4096), then M at the cluster's edges (ops/cuda_p2p.cluster_size: a
+# CTA takes up to 2048 points until the cluster has 8): one point, just
+# under and over a chunk, M % 4 != 0 (hypotheses at any offset modulo 16
+# bytes), staged shared memory just under 48 KB with the static (the
+# opt-in's edge), past the cap (8192 points a CTA, staged) and past what a
+# CTA can stage (10001 points a CTA, read from device memory twice).
+P2P_SHAPES = [(64, 1024), (1, 16384), (1, 4096), (3, 1), (5, 2047), (5, 2049), (6, 4097),
+              (2, 1955), (1, 65536), (2, 80001)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m", [(64, 1024), (1, 16384)])
+@pytest.mark.parametrize("b,m", P2P_SHAPES)
 def test_p2p_step_kernel_matches_plain_on_card(cuda_device, rng, b, m):
     """The Kabsch step's kernel against its plain version (``torch.linalg.svd``
-    on the card) at the mid stage's and a tracking scan's shapes: R within
-    P2P_TOL, t within P2P_TOL (1 + |p_bar|), no inliers give I exactly; two
-    calls are bit-equal, and each hypothesis alone gives its row of the
-    batch bit for bit (one block a hypothesis, no atomics)."""
+    on the card): R within P2P_TOL, t within P2P_TOL (1 + |p_bar|), no
+    inliers give I exactly; collinear inliers (R not determined by H, so not
+    held against the plain version) give the smallest rotation that takes
+    the source line onto the target line; two calls are bit-equal, and each
+    hypothesis alone gives its row of the batch bit for bit (the cluster
+    size depends on M alone; no atomics)."""
     from open3d_slam_torch.ops import cuda_p2p
     pts, q, w = _p2p_inputs(rng, cuda_device, b, m)
     got = cuda_p2p.p2p_step(pts, q, w)
     want = cuda_p2p.p2p_step_plain(pts, q, w)
     assert torch.equal(got, cuda_p2p.p2p_step(pts, q, w))
-    assert float((got[:, :3, :3] - want[:, :3, :3]).abs().max()) <= P2P_TOL
+    held = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    if b > 4:
+        held[-4] = False
+    assert float((got[held, :3, :3] - want[held, :3, :3]).abs().max()) <= P2P_TOL
     _, p_bar, _ = cuda_p2p.p2p_moments(pts, q, w)
-    t_err = (got[:, :3, 3] - want[:, :3, 3]).abs().amax(-1)
-    assert bool((t_err <= P2P_TOL * (1.0 + p_bar.norm(dim=-1))).all())
+    t_err = (got[:, :3, 3] - want[:, :3, 3]).abs().amax(-1)[held]
+    assert bool((t_err <= P2P_TOL * (1.0 + p_bar[held].norm(dim=-1))).all())
     assert torch.equal(got[:, 3], want[:, 3])
     if b > 3:
         assert torch.equal(got[-1], torch.eye(4, device=cuda_device))
         H, _, _ = cuda_p2p.p2p_moments(pts[-3:-2], q[-3:-2], w[-3:-2])
         assert float(torch.linalg.det(H.double())) < 0
-    for i in (0, b - 1):
+    if b > 4:
+        R = got[-4, :3, :3].double()
+        P, Q = (x[-4][w[-4]].double() for x in (pts, q))
+        P, Q = P - P.mean(0), Q - Q.mean(0)
+        k = int(P.norm(dim=1).argmax())
+        a, c = P[k] / P[k].norm(), Q[k] / Q[k].norm()
+        eye = torch.eye(3, dtype=torch.float64, device=cuda_device)
+        assert float((R @ R.T - eye).abs().max()) <= P2P_TOL
+        assert float((R @ a - c).abs().max()) <= P2P_TOL
+        # The smallest such rotation turns by the angle between the lines.
+        assert abs(float(torch.trace(R) - (1.0 + 2.0 * (a @ c)))) <= P2P_TOL
+    for i in sorted({0, b - 1, max(b - 4, 0)}):
         assert torch.equal(cuda_p2p.p2p_step(pts[i:i + 1], q[i:i + 1], w[i:i + 1]),
                            got[i:i + 1])
 

@@ -15,6 +15,8 @@ e |p_bar| (|p_bar| is ~36 m in the far case).  The loop is held as
 1e-5, fitness within 1e-6 and RMSE within 1e-4 relative, iteration counts
 equal.  Within the port the static path is held to the eager loop's bits.
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,6 +107,35 @@ def test_p2p_step_wrapper_rules():
     with pytest.raises(ValueError):
         cuda_p2p.p2p_step(torch.zeros(0, 8, 3), torch.zeros(0, 8, 3),
                           torch.zeros(0, 8, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("m", [0, 1, 2047, 2048, 2049, 4097, 14337, 16384, 16385, 65536,
+                               80001, 1 << 22])
+def test_cluster_size_depends_on_m_alone(m):
+    """The kernel's cluster of CTAs per hypothesis: min(8, ceil(M / 2048)),
+    within [1, 8], a function of M alone (the wrapper passes it for every
+    B), and every CTA's chunk of ceil(M / C) points holds at least one."""
+    c = cuda_p2p.cluster_size(m)
+    assert 1 <= c <= cuda_p2p.MAX_CLUSTER == 8
+    assert c == max(1, min(8, -(-m // 2048)))
+    assert c == 1 or cuda_p2p.cluster_size(m - 1) <= c
+    chunk = -(-m // c)
+    assert chunk * c >= m and (m == 0 or (c - 1) * chunk < m)
+    params = inspect.signature(cuda_p2p.cluster_size).parameters
+    assert list(params) == ["m"]
+
+
+def test_split_tool_cuts_the_kernel_source():
+    """``cli.p2p_split``'s cuts each find their text once in the kernel's
+    source, so its variants stay those its docstring names."""
+    from open3d_slam_torch.cli import p2p_split
+    from open3d_slam_torch.ops import cuda_build
+    with open(f"{cuda_build.CSRC_DIR}/p2p_step.cu") as f:
+        text = f.read()
+    variants = p2p_split.variant_sources("cluster", text)
+    assert list(variants) == ["launch", "stage", "passes", "full", "nojacobi", "nostage"]
+    assert variants["full"] == text
+    assert len(set(variants.values())) == len(variants)
 
 
 def _scene():
