@@ -27,7 +27,10 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      ``bench_scan2map_gicp_latency`` runs it (4096 x 65536 GICP, 50
      iterations, 0.8 m, chains of 10 data-dependent calls, median of 3),
      eager and graphed in turns, and for K1 and K4 each mode's host launch
-     calls (``torch.profiler``), host us and device us per GN iteration;
+     calls (``torch.profiler``), host us and device us per GN iteration,
+     and the operations one graphed B = 1 iteration puts on the card (a CUDA
+     graph of it, read node by node: K1's or K4's two kernels, ``gn_apply``
+     and ``gn_step``);
   5. replays the same scans with the full ``velodyne_puck16`` configuration
      as users run it (loop closures on, undistortion on), counts reset
      again, and checks that a closure was accepted and applied, the ATE,
@@ -73,6 +76,9 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      and the eager turns' must equal them;
   8. replays the first scans of step 3 with point-to-plane ICP for both
      registrations (the ``SlamParameters`` default) and checks the ATE;
+     then prints two witnesses beside it: the same replay with the GN
+     loops' earlier chain routed in for ``gn_step`` and ``gn_apply``, and
+     that chain with the kernel's solve, each with its per-scan gap;
   8b. replays them with point-to-point ICP for both registrations, graphed
      and eager (bit-equal), and holds the ATE to a limit taken from a
      witness: the same replay with the loop's earlier host SVD; then the
@@ -94,8 +100,14 @@ Needs one CUDA card, ``nvcc`` and a checkout of this repository (it imports
      for K2's prepass also the matmul + topk chain it replaced, and for the
      sweeps the share of pairs their skip leaves; K3 both gated (the
      callers' entry, held by their verdict) and ungated (bit-equal), with
-     ``torch.cdist(...).argmin(1)`` timed beside it; the batched 6x6 solve
-     of the loops (``cuda_solve6``, at B > 1) bit-equal to its plain version;
+     ``torch.cdist(...).argmin(1)`` timed beside it; the GN loops' step
+     (``cuda_gn_step.gn_step``: its solve bit-equal to ``solve6_plain``, its
+     statistics and flags equal to its plain version's, its poses within
+     ``GN_TOL``) and point apply (``gn_apply``, bit-equal), with the
+     library's ``cholesky_ex`` + ``cholesky_solve`` timed beside; the
+     batched 6x6 solve (``cuda_solve6``, the solve alone, on the normal
+     equations ``gn_step`` was given at each B > 1) bit-equal to its plain
+     version;
      the point-to-point loop's Kabsch step (``cuda_p2p``) within its
      tolerance of its plain version, the library chain it replaced, with
      the synchronising operations of one call of each, its cluster size,
@@ -134,7 +146,7 @@ N_DETERMINISM = 10          # scans replayed again in sequential mode
 # may render other scans, and then only the ATE is held).  The K2 moments
 # kernel's summation order is part of them.
 SCANS_SHA1 = "c7037044da48c50c"
-POSES_SHA1 = "9a8aedaf9f6df5a6"
+POSES_SHA1 = "bdf8c708a413aafb"
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -250,7 +262,11 @@ class Recorder:
     solve the first chunk's, which reads the loop's state): a later chunk,
     such as a remainder that a loop breaking early never reaches, may not
     have run.  It counts nothing itself: the launch counts are the
-    wrappers' own, in ``cuda_build.launches``."""
+    wrappers' own, in ``cuda_build.launches``.  While ``Recorder.paused``
+    is set (a measurement that runs a loop's step on its static buffers)
+    it records nothing."""
+
+    paused = False
 
     def __init__(self, cuda_build, module, name):
         self.cuda_build, self.module, self.name = cuda_build, module, name
@@ -260,6 +276,8 @@ class Recorder:
         self.captured = set()
 
     def __call__(self, *args, **kwargs):
+        if Recorder.paused:
+            return self.wrapper(*args, **kwargs)
         counts = self.cuda_build.capture_counts()
         skip = self.frozen | (self.captured if counts is not None else set())
         if counts is None:
@@ -563,9 +581,24 @@ def icp_entry(cuda_icp, shape, n_launch, args, kwargs):
                 "library_ms": None}
 
 
+def library_solve_ms(JtJ, Jtr):
+    """The library's 6x6 solve of the same jittered systems:
+    ``cholesky_ex`` and ``cholesky_solve`` (cuSOLVER at B = 1, batched
+    routes above, which synchronise), median of 3, the jittered matrices
+    made beforehand."""
+    import torch
+    tr = JtJ.diagonal(dim1=-2, dim2=-1).sum(-1)
+    A = JtJ + (1e-6 * torch.clamp(tr / 6.0, min=1e-12))[..., None, None] * torch.eye(
+        6, device=JtJ.device)
+    rhs = -Jtr[..., None]
+    return time_ms(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky_ex(A)[0]), 3)
+
+
 def solve6_entry(cuda_solve6, shape, n_launch, args, kwargs):
-    """The batched 6x6 solve of the GN loops at B > 1 (``registration._solve6``
-    on the card): bit-equal to its plain version."""
+    """The batched 6x6 solve (``cuda_solve6``, the solve the GN loops took at
+    B > 1 before ``gn_step``, which holds the same code): bit-equal to its
+    plain version, on the normal equations a loop's sweep gave ``gn_step``
+    at that B; the library's ``cholesky_ex`` + ``cholesky_solve`` beside."""
     import torch
     JtJ, Jtr = args
     got = cuda_solve6.solve6(JtJ, Jtr)
@@ -575,17 +608,111 @@ def solve6_entry(cuda_solve6, shape, n_launch, args, kwargs):
     err = float((got - want).abs().max())
     ms = time_ms(lambda: cuda_solve6.solve6(JtJ, Jtr), 20)
     plain = time_ms(lambda: cuda_solve6.solve6_plain(JtJ, Jtr), 3)
+    library = library_solve_ms(JtJ, Jtr)
     (b,) = shape
     # 183 float32 operations a system (trace and jitter 8, the left-looking
     # factor 97, the two substitutions 78); 42 floats read, 6 written.
     b_ms, b_by = bound_ms(4.0 * b * 48, 183.0 * b)
     print(f"solve6 B={b}: bit-equal to plain {equal} (max abs err {err:.3e}), {ms:.4f} ms "
-          f"vs plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+          f"vs plain {plain:.4f} ms, cholesky_ex + cholesky_solve {library:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}); {n_launch} launches on the path (gn_step holds the solve)")
     return equal, {"name": f"solve6[{b}]", "route": "cuda",
                    "source": "open3d_slam_torch/csrc/solve6.cu",
                    "replaces": "open3d_slam_tpu/ops/registration.py:85",
                    "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+
+
+GN_TOL = 1e-5       # gn_step's next poses: R entries; t relative to 1 + |t|
+
+
+def gn_step_entry(cuda_gn_step, shape, n_launch, args, kwargs):
+    """The Gauss-Newton step after a sweep (``cuda_gn_step.gn_step``) at one
+    B the runs gave it, on the sweep output, valid counts and poses they
+    gave it: at the start, and in an iteration from that start's state
+    (every element converging, and, with the fitness moved by 1, none):
+    the solve bit-equal to ``solve6_plain``, the statistics, counts and
+    flags equal to the plain version's (the loops' earlier chain), the next
+    poses within ``GN_TOL``; the library's solve (``cholesky_ex`` +
+    ``cholesky_solve``) timed beside."""
+    import torch
+    from open3d_slam_torch.ops import cuda_build, cuda_gicp, cuda_solve6
+    out, n_src, P, _, exp = args[:5]
+    b = P.shape[0]
+    JtJ, Jtr, _, _ = cuda_gicp.unpack(out)
+    start = cuda_gn_step.gn_step_plain(out, n_src, P, None, exp, 1e-6, 1e-6)
+    moved = start._replace(fit=start.fit + 1.0)
+    err, ok = 0.0, True
+    for prev in (None, start, moved):
+        delta = torch.empty((b, 6), device=P.device)
+        got = cuda_gn_step.gn_step(out, n_src, P, prev, exp, 1e-6, 1e-6, delta)
+        want = cuda_gn_step.gn_step_plain(out, n_src, P, prev, exp, 1e-6, 1e-6)
+        torch.cuda.synchronize()
+        ok = ok and torch.equal(delta, cuda_solve6.solve6_plain(JtJ, Jtr)) and all(
+            torch.equal(getattr(got, k), getattr(want, k)) for k in ("T", "fit", "rmse", "it",
+                                                                      "done"))
+        gap = float(torch.maximum(
+            (got.P[:, :3, :3] - want.P[:, :3, :3]).abs().amax((-1, -2)),
+            (got.P[:, :3, 3] - want.P[:, :3, 3]).abs().amax(-1)
+            / (1.0 + want.P[:, :3, 3].abs().amax(-1))).max())
+        ok = ok and gap <= GN_TOL
+        err = max(err, float((got.P - want.P).abs().max()))
+    ms = time_ms(lambda: cuda_gn_step.gn_step(out, n_src, P, start, exp, 1e-6, 1e-6), 20)
+    plain = time_ms(lambda: cuda_gn_step.gn_step_plain(out, n_src, P, start, exp, 1e-6, 1e-6), 3)
+    library = library_solve_ms(JtJ, Jtr)
+    # ~600 float32 operations an element (stats 6, the solve 183, the
+    # retraction ~190 with its sines, dT P 112, the stop test 8); read: 44
+    # floats of the sweep's output, n_src, P and the state (~13 bytes);
+    # written: T and P, the state, the solve.
+    b_ms, b_by = bound_ms(b * (4.0 * (44 + 1 + 16 + 32 + 6) + 26), 600.0 * b)
+    print(f"gn_step B={b} ({'exp' if exp else 'Euler'} retraction): ptxas "
+          f"{cuda_build.ptxas_summary(cuda_build.build_logs.get('gn_step', ''))}; solve "
+          f"bit-equal to solve6_plain, statistics and flags equal, next poses within {GN_TOL:g}: "
+          f"{ok} (max abs err {err:.3e}); {ms:.4f} ms vs plain (the earlier chain) "
+          f"{plain:.4f} ms, cholesky_ex + cholesky_solve alone {library:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by})", flush=True)
+    return ok, {"name": f"gn_step[{b}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/gn_step.cu",
+                "replaces": "open3d_slam_tpu/ops/registration.py:85",
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+
+
+def gn_apply_entry(cuda_gn_step, shape, n_launch, args, kwargs):
+    """The pose applied before a sweep (``cuda_gn_step.gn_apply``) at one
+    shape the runs gave it: bit-equal to its plain version
+    (``se3.transform_points`` and ``cuda_gicp.rotate_cov6``); without
+    covariances, ``torch.baddbmm`` (t + p R^T, one call) timed beside."""
+    import torch
+    T, points = args[:2]
+    cov6 = args[2] if len(args) > 2 else None
+    got = cuda_gn_step.gn_apply(T, points, cov6)
+    want = cuda_gn_step.gn_apply_plain(T, points, cov6)
+    torch.cuda.synchronize()
+    ok = torch.equal(got[0], want[0]) and (cov6 is None or torch.equal(got[1], want[1]))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want) if g is not None)
+    ms = time_ms(lambda: cuda_gn_step.gn_apply(T, points, cov6), 20)
+    plain = time_ms(lambda: cuda_gn_step.gn_apply_plain(T, points, cov6), 3)
+    b, m, w = shape
+    library = None
+    if cov6 is None:
+        pts, Rt, t = points.expand(b, m, 3), T[:, :3, :3].transpose(-1, -2), T[:, None, :3, 3]
+        library = time_ms(lambda: torch.baddbmm(t, pts, Rt), 20)
+    lead = 1 if points.dim() == 2 else points.shape[0]
+    # Read once: the points (and covariances) of each distinct cloud, the
+    # poses; written: B x M x (3 + 6) floats.  18 operations a point, 75 a
+    # covariance (the two products' 15 three-term dots).
+    b_ms, b_by = bound_ms(4.0 * (lead * m * w + b * m * w + b * 16),
+                          b * m * (18.0 + (75.0 if w == 9 else 0.0)))
+    print(f"gn_apply {b}x{m} ({'points and covariances' if w == 9 else 'points'}): bit-equal "
+          f"to plain {ok} (max abs err {err:.3e}); {ms:.4f} ms vs plain {plain:.4f} ms, "
+          f"baddbmm {'n/a' if library is None else f'{library:.4f} ms'}, bound {b_ms:.6f} ms "
+          f"({b_by})", flush=True)
+    return ok, {"name": f"gn_apply[{b}x{m}x{w}]", "route": "cuda",
+                "source": "open3d_slam_torch/csrc/gn_step.cu",
+                "replaces": "open3d_slam_tpu/ops/registration.py:217",
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
 
 
 # The Kabsch step's one-block design (commit 3b38a95's csrc/p2p_step.cu),
@@ -944,6 +1071,8 @@ def scan_to_map_chain(cuda_build, gn_graph, datasets, pclib, name_power):
                     statistics.median(host_us) / iters,
                     None if launched is None else sum(launched.values()) / iters,
                     busy_us / iters, iters, int(res.num_iterations), launched)
+        nodes = {kernel: iteration_nodes(gn_graph, kind, S2M_SCAN, dev)
+                 for kernel, kind in (("gicp_normal_eq", "gicp"), ("p2l_normal_eq", "p2l"))}
     finally:
         gn_graph.MODE = "graph"
     equal = same_result(last["eager"], last["graph"])
@@ -959,12 +1088,39 @@ def scan_to_map_chain(cuda_build, gn_graph, datasets, pclib, name_power):
               f"per GN iteration {'not measured' if launched is None else round(launched, 3)}, "
               f"device us per GN iteration {dev_us:.2f} ({iters:g} iterations run, "
               f"{n_it} counted); runtime calls {json.dumps(names)}", flush=True)
+    iteration_ok = True
+    for kernel, names in nodes.items():
+        rows = "gicp_rows" if kernel == "gicp_normal_eq" else "p2l_rows"
+        good = (len(names) == 4 and "gn_apply" in names[0] and "nn_sweep" in names[1]
+                and rows in names[2] and "gn_step" in names[3])
+        iteration_ok = iteration_ok and good
+        print(f"  {kernel}: one graphed B = 1 iteration puts {len(names)} operations on the "
+              f"card (a CUDA graph of it, read node by node): "
+              f"{[n[:40] for n in names]}; the sweep's two kernels and at most two more "
+              f"{good}", flush=True)
     missing = missing_kernels(cuda_build, counts, ("gicp_normal_eq", "kth_neighbor_d2_within",
                                                    "radius_moments_at"))
     if missing:
         print(f"the scan-to-map chain never launched {missing}", file=sys.stderr)
-    ok = equal and not missing and float(last["graph"].fitness) > 0.5
+    ok = equal and not missing and float(last["graph"].fitness) > 0.5 and iteration_ok
     return ok, counts
+
+
+def iteration_nodes(gn_graph, kind, m, dev):
+    """The operations one iteration of the graphed B = 1 ``kind`` loop
+    ("gicp" or "p2l") with M = ``m`` source points puts on the card: the
+    nodes of a CUDA graph of the loop's own step on its static buffers
+    (``gn_graph.graph_nodes``)."""
+    for (key, capture), loop in list(gn_graph._entries.items()):
+        x = loop.inputs
+        if (capture and key[0] == kind and x["inits"].shape[0] == 1
+                and x["points"].shape[-2] == m):
+            Recorder.paused = True
+            try:
+                return gn_graph.graph_nodes(lambda: loop.step(loop.state), dev)[0]
+            finally:
+                Recorder.paused = False
+    return []
 
 
 def missing_kernels(cuda_build, counts, names):
@@ -1216,6 +1372,55 @@ def p2p_tracking(params, seq, scans, cuda_build, devmod, evaluation, gn_graph, S
     if missing:
         print(f"point-to-point tracking never launched {missing}", file=sys.stderr)
     return same and runs["graph"][4] <= limit and not missing, counts
+
+
+def p2l_witnesses(p2l, seq, scans, poses, ate, evaluation, SlamWrapper, gn_graph,
+                  cuda_gn_step, cuda_solve6, name_power):
+    """Step 8's witnesses, printed beside its ATE (its limit stays the
+    ATE's): the same replay with the GN loops' earlier chain routed in on the
+    card (``gn_step_plain`` and ``gn_apply_plain`` for the kernels: the
+    parent's step, cuSOLVER's B = 1 solve and cuBLAS's products), then that
+    chain with its solve in ``solve6.cuh``'s order at every B
+    (``solve6_plain``, which the kernel's solve equals bit for bit: a change
+    of rounding alone).  For each, the ATE and the per-scan translation gap
+    to step 8's poses: the first scan where it passes 1 um and 1 mm, and its
+    largest.  The loops' graphs are dropped before each and after both."""
+    import numpy as np
+    import torch
+    kept = {k: getattr(cuda_gn_step, k) for k in ("gn_step", "gn_apply", "solve6_chain")}
+    routes = (("the earlier chain", {"gn_step": cuda_gn_step.gn_step_plain,
+                                     "gn_apply": cuda_gn_step.gn_apply_plain}),
+              ("the earlier chain with solve6.cuh's solve",
+               {"gn_step": cuda_gn_step.gn_step_plain, "gn_apply": cuda_gn_step.gn_apply_plain,
+                "solve6_chain": cuda_solve6.solve6_plain}))
+    Recorder.paused = True
+    try:
+        for name, route in routes:
+            gn_graph.clear()
+            for k, fn in route.items():
+                setattr(cuda_gn_step, k, fn)
+            slam = SlamWrapper(p2l, device="cuda")
+            slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
+            for points, ts in scans[:P2L_SCANS]:
+                slam.process_scan_pipelined(points, ts)
+            slam.finish_processing()
+            torch.cuda.synchronize()
+            got, w_ate, _ = check_trajectory(slam, seq, P2L_SCANS, evaluation)
+            del slam
+            for k, fn in kept.items():
+                setattr(cuda_gn_step, k, fn)
+            gap = np.array([np.linalg.norm(np.asarray(a)[:3, 3] - np.asarray(b)[:3, 3])
+                            for a, b in zip(poses, got)])
+            first = [int(np.argmax(gap > t)) if (gap > t).any() else None for t in (1e-6, 1e-3)]
+            print(f"point-to-plane witness, {name}: ATE rmse {w_ate.rmse:.4f} m (step 8: "
+                  f"{ate:.4f} m), poses sha1 {poses_sha1(got)}; translation gap to step 8's "
+                  f"poses: scan 0 {gap[0]:.3g} m, first over 1 um at scan {first[0]}, over 1 "
+                  f"mm at scan {first[1]}, largest {gap.max():.4f} m; {name_power}", flush=True)
+    finally:
+        for k, fn in kept.items():
+            setattr(cuda_gn_step, k, fn)
+        Recorder.paused = False
+        gn_graph.clear()
 
 
 def device_ms_per_scan(slam, scans, kernel):
@@ -1824,9 +2029,10 @@ def main() -> int:
         from open3d_slam_torch.io import datasets, lidar_sim, pcd
         from open3d_slam_torch.models.async_driver import AsyncSlamDriver
         from open3d_slam_torch.models.slam_wrapper import SlamWrapper
-        from open3d_slam_torch.ops import (cuda_build, cuda_gicp, cuda_icp, cuda_knn,
-                                           cuda_normals, cuda_p2p, cuda_pose_graph,
-                                           cuda_solve6, gn_graph, pose_graph)
+        from open3d_slam_torch.ops import (cuda_build, cuda_gicp, cuda_gn_step, cuda_icp,
+                                           cuda_knn, cuda_normals, cuda_p2p,
+                                           cuda_pose_graph, cuda_solve6, gn_graph,
+                                           pose_graph)
         from open3d_slam_torch.parallel import multi_start
         from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
         from open3d_slam_torch.utils import pointcloud as pclib
@@ -1884,7 +2090,9 @@ def main() -> int:
                  Recorder(cuda_build, cuda_p2p, "p2p_step"),
                  Recorder(cuda_build, cuda_pose_graph, "pg_linearize"),
                  Recorder(cuda_build, cuda_pose_graph, "pg_assemble"),
-                 Recorder(cuda_build, cuda_pose_graph, "pg_step")]
+                 Recorder(cuda_build, cuda_pose_graph, "pg_step"),
+                 Recorder(cuda_build, cuda_gn_step, "gn_step"),
+                 Recorder(cuda_build, cuda_gn_step, "gn_apply")]
     for rec in recorders:
         rec.install()
     slam = SlamWrapper(params, device="cuda")
@@ -1908,7 +2116,7 @@ def main() -> int:
     if ate.rmse > ATE_LIMIT_M:
         print(f"ATE {ate.rmse:.4f} m exceeds {ATE_LIMIT_M} m", file=sys.stderr)
         ok = False
-    for rec in recorders[:3]:
+    for rec in recorders[:3] + recorders[10:]:
         if cuda_build.launch_total(rec.name, by_key) == 0:
             print(f"{rec.name} was never launched", file=sys.stderr)
             ok = False
@@ -2051,14 +2259,16 @@ def main() -> int:
     slam.warmup(scans=seq.scans[:N_SKIP], timestamps=seq.timestamps[:N_SKIP])
     torch.cuda.synchronize()
     per_scan_ms, wall_s, p2l_key, syncs = replay(slam, scans[:P2L_SCANS], cuda_build, devmod)
-    _, ate, rpe = check_trajectory(slam, seq, P2L_SCANS, evaluation)
+    p2l_poses, ate, rpe = check_trajectory(slam, seq, P2L_SCANS, evaluation)
     b1 = {s: c for (k, s), c in p2l_key.items() if k == "p2l_normal_eq" and s[0] == 1}
     print(f"point-to-plane tracking: {P2L_SCANS} scans, per-scan p50 "
           f"{np.median(per_scan_ms):.2f} ms, host syncs {syncs / P2L_SCANS:.2f} per scan, "
           f"ATE rmse {ate.rmse:.4f} m (limit {ATE_LIMIT_M} m), RPE trans "
-          f"{rpe.trans_rmse:.4f} m; launches {json.dumps(shape_counts(p2l_key))}",
-          flush=True)
+          f"{rpe.trans_rmse:.4f} m, poses sha1 {poses_sha1(p2l_poses)}; launches "
+          f"{json.dumps(shape_counts(p2l_key))}", flush=True)
     del slam
+    p2l_witnesses(p2l, seq, scans, p2l_poses, ate.rmse, evaluation, SlamWrapper, gn_graph,
+                  cuda_gn_step, cuda_solve6, name_power)
     if ate.rmse > ATE_LIMIT_M or not b1:
         print("point-to-plane tracking: ATE over its limit or no B = 1 launch of "
               "p2l_normal_eq", file=sys.stderr)
@@ -2100,8 +2310,17 @@ def main() -> int:
                                (recorders[6], p2p_entry, cuda_p2p),
                                (recorders[7], pg_linearize_entry, cuda_pose_graph),
                                (recorders[8], pg_assemble_entry, cuda_pose_graph),
-                               (recorders[9], pg_step_entry, cuda_pose_graph)):
-        for (name, shape), (args, kwargs) in sorted(rec.inputs.items()):
+                               (recorders[9], pg_step_entry, cuda_pose_graph),
+                               (recorders[10], gn_step_entry, cuda_gn_step),
+                               (recorders[11], gn_apply_entry, cuda_gn_step)):
+        inputs = rec.inputs
+        if rec is recorders[5]:
+            # The loops' solve is gn_step's now: solve6 is held on the normal
+            # equations a sweep gave gn_step at each B > 1.
+            inputs = {**{("solve6", shape): (cuda_gicp.unpack(args[0])[:2], {})
+                         for (_, shape), (args, _) in recorders[10].inputs.items()
+                         if shape[0] > 1}, **inputs}
+        for (name, shape), (args, kwargs) in sorted(inputs.items()):
             key = (name, shape)
             n_launch = full_key.get(key, by_key.get(key, sum(
                 c.get(key, 0) for c in (chain_key, cli_key, global_key, p2l_key, p2p_key,

@@ -33,7 +33,7 @@ from open3d_slam_torch.utils.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gicp", "normals", "knn", "icp", "solve6", "p2p_step", "pose_graph")
+SOURCES = ("gicp", "normals", "knn", "icp", "solve6", "gn_step", "p2p_step", "pose_graph")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -77,6 +77,21 @@ def credit(counts: collections.Counter):
     """Count the launches of one replay of a CUDA graph (``graph_launches``)."""
     with _launches_lock:
         launches.update(counts)
+
+
+@contextlib.contextmanager
+def launches_kept():
+    """Launches inside the block leave no trace: at its end, however it
+    ends, ``launches`` holds what it held at its start (a measurement's own
+    launches are not the path's)."""
+    with _launches_lock:
+        kept = collections.Counter(launches)
+    try:
+        yield
+    finally:
+        with _launches_lock:
+            launches.clear()
+            launches.update(kept)
 
 
 def launch_total(kernel: str, counts: Optional[Dict] = None) -> int:

@@ -5,9 +5,11 @@ jitter, Cholesky, the two triangular solves) for a batch of (B, 6, 6) normal
 equations: on CUDA tensors it launches the hand-written kernel in
 ``csrc/solve6.cu``; on CPU tensors it runs ``solve6_plain``, the same
 operations in the same order in plain PyTorch (bit-equal to the kernel on
-the card).  ``registration._solve6`` takes it for B > 1 on the card, where
-the library route (MAGMA's batched potrs) synchronises and cannot be
-captured into a CUDA graph (``ops/gn_graph.py``).
+the card).  The loops' step kernel (``csrc/gn_step.cu``) runs the same solve
+(``csrc/solve6.cuh``) inside it; this wrapper launches the solve alone:
+``cuda_gn_step.solve6_chain``, the plain version of that step, takes it for
+B > 1 on the card, where the library route (MAGMA's batched potrs)
+synchronises and cannot be captured into a CUDA graph (``ops/gn_graph.py``).
 """
 from __future__ import annotations
 

@@ -62,6 +62,7 @@ CPU).  Nothing on the main path sets it.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Callable, Dict, Hashable, List, NamedTuple, Tuple
 
@@ -82,9 +83,8 @@ _streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 
 class GNState(NamedTuple):
-    T: torch.Tensor      # (B, 4, 4) poses
-    JtJ: torch.Tensor    # (B, 6, 6) normal equations at T
-    Jtr: torch.Tensor    # (B, 6)
+    T: torch.Tensor      # (B, 4, 4) poses the statistics were taken at
+    P: torch.Tensor      # (B, 4, 4) poses the next sweep evaluates (T where done)
     fit: torch.Tensor    # (B,) fitness at T
     rmse: torch.Tensor   # (B,) inlier RMSE at T
     it: torch.Tensor     # (B,) int32 iterations taken
@@ -160,8 +160,11 @@ class _Graph:
     current streams, ends the routing, releases the pool, retires the side
     stream and raises again."""
 
-    def __init__(self, body: Callable[[], None], stream: torch.cuda.Stream):
-        self.graph = torch.cuda.CUDAGraph()
+    def __init__(self, body: Callable[[], None], stream: torch.cuda.Stream,
+                 keep_graph: bool = False):
+        # keep_graph: the cudaGraph_t stays readable (``raw_cuda_graph``).
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else \
+            torch.cuda.CUDAGraph()
         # The caller's current streams, on the current device and on the
         # capture's, as torch.cuda.stream saves them.
         callers = (torch.cuda.current_stream(), torch.cuda.current_stream(stream.device))
@@ -209,8 +212,8 @@ class _Loop:
                 first = self._warm_up()
         else:
             first = self.start()
-        # The state's buffers have the layout of the start's own tensors (the
-        # Gauss-Newton loop's JtJ and Jtr are strided views of its Gram).
+        # The state's buffers have the layout of the start's own tensors, so
+        # the graphs see the strides the eager loop's tensors have.
         self.state = type(first)(*(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
                                                        device=t.device) for t in first))
 
@@ -360,3 +363,109 @@ def clear():
     """Drop every key's buffers and graphs."""
     with _lock:
         _entries.clear()
+
+
+# CUgraphNodeType (cuda.h): the kinds of node a captured graph can hold.
+_NODE_KINDS = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+               "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc",
+               "mem_free", "batch_mem_op", "conditional")
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h); v1 is its prefix."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
+        ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _driver():
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        err = getattr(cu, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} failed with CUDA driver error {err}")
+    return cu, call
+
+
+def _node_names(graph_handle: int) -> List[str]:
+    """Each node of a cudaGraph_t in the order it was added: a kernel node by
+    its function's (mangled) name, any other by its kind in angle brackets."""
+    cu, call = _driver()
+    graph = ctypes.c_void_p(graph_handle)
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+        cu.cuGraphKernelNodeGetParams
+    names = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:
+            known = kind.value < len(_NODE_KINDS)
+            names.append(f"<{_NODE_KINDS[kind.value] if known else kind.value}>")
+            continue
+        p = _KernelNodeParams()
+        err = get_params(ctypes.c_void_p(node), ctypes.byref(p))
+        if err != 0:
+            raise RuntimeError(f"cuGraphKernelNodeGetParams failed with error {err}")
+        func = ctypes.c_void_p(p.func)
+        if not p.func:                      # set through a CUkernel handle
+            call("cuKernelGetFunction", ctypes.byref(func), ctypes.c_void_p(p.kern))
+        name = ctypes.c_char_p()
+        call("cuFuncGetName", ctypes.byref(name), func)
+        names.append(name.value.decode())
+    return names
+
+
+def _clone(out):
+    """``out`` with every tensor in it (in tuples too) cloned."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, tuple):
+        items = [_clone(v) for v in out]
+        return type(out)(*items) if hasattr(out, "_fields") else tuple(items)
+    return out
+
+
+def capture(fn: Callable[[], object], device: torch.device,
+            keep_graph: bool = False) -> Tuple["_Graph", object]:
+    """``fn`` captured into a CUDA graph as the loops capture theirs, holding
+    ``capturing``: one warm-up call on the side stream (scratch and
+    workspaces exist before the capture; its launches are counted), then
+    the capture there (its launches recorded, credited at each
+    ``replay``).  Returns (the ``_Graph``, what the captured call returned:
+    tensors that each replay rewrites).  A refused capture raises, with the
+    caller on its own streams (``_Graph``)."""
+    out = {}
+    with capturing:
+        stream = _side_stream(device)
+        main = torch.cuda.current_stream(device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            fn()
+        main.wait_stream(stream)
+        graph = _Graph(lambda: out.setdefault("result", fn()), stream, keep_graph)
+    return graph, out["result"]
+
+
+def graph_nodes(fn: Callable[[], object], device: torch.device) -> Tuple[List[str], object]:
+    """What one call of ``fn`` puts on the card, read from a CUDA graph of
+    the call (``capture``): the graph's nodes read back through the driver,
+    in the order the capture added them: a kernel by its function's mangled
+    name, any other node by its kind in angle brackets ("<memcpy>",
+    "<memset>", ...).  The graph is then replayed once; returns (the names,
+    the replay's result cloned).  Unlike a profiler's trace, which can miss
+    device records, the graph holds every operation the call enqueued.  No
+    launch of the warm-up, the capture or the replay stays in
+    ``cuda_build.launches``, whether the capture succeeds or fails."""
+    with cuda_build.launches_kept():
+        graph, result = capture(fn, device, keep_graph=True)
+        names = _node_names(graph.graph.raw_cuda_graph())
+        graph.graph.replay()
+        result = _clone(result)
+        torch.cuda.current_stream(device).synchronize()
+    return names, result

@@ -2,15 +2,20 @@
 point-to-point ICP over kernel K3.
 
 Port of ``open3d_slam_tpu.ops.registration`` on its kernel routes:
-``RegistrationResult``, ``_solve6``, ``_euler_xyz_transform``,
-``_result_stats``, the fused batched loops
+``RegistrationResult``, ``_result_stats``, the fused batched loops
 (``_icp_gicp_fused_batch``, ``_icp_p2l_fused_batch``),
 ``batched_icp_point_to_plane``, ``icp_point_to_plane``, ``icp_generalized``,
 ``icp_point_to_point`` (its Kabsch step ``_p2p_step`` is
 ``cuda_p2p.p2p_step``) and ``evaluate_registration``.  Semantics are the JAX
 package's: step from the normal equations (or the Kabsch moments) at T,
 re-evaluate at T_new, stop per batch element on Open3D's relative
-fitness/RMSE rule, freeze converged elements.  The port takes the fused
+fitness/RMSE rule, freeze converged elements.  A fused loop's iteration
+is three wrapper calls: ``cuda_gn_step.gn_apply`` (the source at the poses
+P), K1's or K4's sweep there, and ``cuda_gn_step.gn_step`` (the statistics,
+the stop test, and the next step from the same normal equations, which the
+JAX loop takes at the top of its next iteration; the JAX ``_solve6`` and
+``_euler_xyz_transform`` are ``cuda_gn_step.solve6_chain`` and
+``euler_xyz_transform``, in its plain version).  The port takes the fused
 route on every device (the JAX package's unfused hash-grid branch, its CPU
 path, is not ported); point-to-point ICP finds its correspondences through
 ``hashgrid.query_nearest`` (K3).
@@ -40,14 +45,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from open3d_slam_torch.ops import cuda_gicp, cuda_icp, cuda_p2p, cuda_solve6, gn_graph
+from open3d_slam_torch.ops import cuda_gicp, cuda_gn_step, cuda_icp, cuda_p2p, gn_graph
 from open3d_slam_torch.ops import hashgrid, nn_layout
 from open3d_slam_torch.ops.gn_graph import GNState
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils import collectives, se3
 from open3d_slam_torch.utils.pointcloud import PointCloud
-
-_JITTER = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,30 +66,6 @@ class RegistrationResult:
         """Element ``i`` of a batched result."""
         return RegistrationResult(self.transformation[i], self.fitness[i],
                                   self.inlier_rmse[i], self.num_iterations[i])
-
-
-def _solve6(JtJ: torch.Tensor, Jtr: torch.Tensor) -> torch.Tensor:
-    """Solve batched 6x6 normal equations with Tikhonov jitter 1e-6 *
-    trace/6, then Cholesky (no error check, so no host sync).  On the card a
-    batch of more than one goes to ``cuda_solve6.solve6``: there the library
-    route is MAGMA's batched solve, which synchronises and cannot be captured
-    into a CUDA graph."""
-    if JtJ.device.type == "cuda" and JtJ.shape[0] > 1:
-        return cuda_solve6.solve6(JtJ, Jtr)
-    tr = JtJ.diagonal(dim1=-2, dim2=-1).sum(-1)
-    scale = torch.clamp(tr / 6.0, min=1e-12)
-    eye = torch.eye(6, dtype=JtJ.dtype, device=JtJ.device)
-    A = JtJ + (_JITTER * scale)[..., None, None] * eye
-    L, _ = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_solve(-Jtr[..., None], L)[..., 0]
-
-
-def _euler_xyz_transform(x: torch.Tensor) -> torch.Tensor:
-    """6-vector (alpha, beta, gamma, tx, ty, tz) -> 4x4 via Rz*Ry*Rx + t:
-    Open3D's ``TransformVector6dToMatrix4d``, the retraction of its
-    point-to-plane solver."""
-    R = se3.rpy_to_matrix(x[..., 0], x[..., 1], x[..., 2])
-    return se3.make_transform(R, x[..., 3:6])
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
@@ -117,46 +96,41 @@ def _result_stats(d2: torch.Tensor, w: torch.Tensor, source_mask: torch.Tensor):
     return fitness, rmse
 
 
-def _gn_start(stats_eq: Callable, inits: torch.Tensor) -> GNState:
-    """The loop's first state: the normal equations at the initial poses."""
-    JtJ, Jtr, fit, rmse = stats_eq(inits)
-    bsz = inits.shape[0]
-    return GNState(inits, JtJ, Jtr, fit, rmse,
-                   torch.zeros(bsz, dtype=torch.int32, device=inits.device),
-                   torch.zeros(bsz, dtype=torch.bool, device=inits.device))
+def _gn_start(sweep: Callable, inits: torch.Tensor, n_src: torch.Tensor,
+              exp_retraction: bool) -> GNState:
+    """The loop's first state: the statistics at the initial poses and the
+    first step from them (``cuda_gn_step.gn_step`` without a stop test)."""
+    return cuda_gn_step.gn_step(sweep(inits), n_src, inits, None, exp_retraction)
 
 
-def _gn_iteration(s: GNState, stats_eq: Callable, retract: Callable,
+def _gn_iteration(s: GNState, sweep: Callable, n_src: torch.Tensor, exp_retraction: bool,
                   relative_fitness: float, relative_rmse: float) -> GNState:
-    """One Gauss-Newton iteration: step from the normal equations at T
-    (``retract`` turns the 6-vector into a 4x4 update applied on the left),
-    freeze converged elements, re-evaluate at T_new (``stats_eq(T)`` gives
-    (JtJ, Jtr, fitness, rmse)), stop an element on Open3D's relative
-    fitness/RMSE rule."""
-    dT = retract(_solve6(s.JtJ, s.Jtr))
-    T_new = torch.where(s.done[:, None, None], s.T, dT @ s.T)
-    JtJ, Jtr, fitn, rmsen = stats_eq(T_new)
-    conv = ((s.fit - fitn).abs() < relative_fitness) & \
-        ((s.rmse - rmsen).abs() < relative_rmse)
-    return GNState(T_new, JtJ, Jtr, fitn, rmsen, s.it + (~s.done).to(torch.int32),
-                   s.done | conv)
+    """One Gauss-Newton iteration: the sweep at the poses ``s.P`` (the step
+    the previous state took from its normal equations, or its poses where it
+    was done; ``sweep(P)`` gives the fused kernel's (B, 8, 128) output),
+    then ``cuda_gn_step.gn_step``: the statistics there, Open3D's relative
+    fitness/RMSE stop test against ``s``'s, and the next step from the same
+    normal equations (``exp_retraction``: the SE(3) exponential, else the
+    Euler-XYZ transform), applied on the left; converged elements freeze."""
+    return cuda_gn_step.gn_step(sweep(s.P), n_src, s.P, s, exp_retraction, relative_fitness,
+                                relative_rmse)
 
 
-def _gauss_newton(kind: str, inputs: dict, make_stats_eq: Callable,
+def _gauss_newton(kind: str, inputs: dict, make_sweep: Callable,
                   layout: nn_layout.SweepLayout, max_dist, max_iterations: int,
-                  relative_fitness: float, relative_rmse: float, retract: Callable,
+                  relative_fitness: float, relative_rmse: float, exp_retraction: bool,
                   group=None) -> RegistrationResult:
     """The Gauss-Newton loop of both fused loops.  ``inputs`` holds the
-    loop's tensors ("inits", "points", ..., "r2"), ``layout`` the sweep's;
-    ``make_stats_eq(x, layout_of)`` builds ``stats_eq`` on a dict of them
-    with the layout ``layout_of()``.  On the card without ``group`` the
+    loop's tensors ("inits", "points", "n_src", ..., "r2"), ``layout`` the
+    sweep's; ``make_sweep(x, layout_of)`` builds ``sweep(P)`` on a dict of
+    them with the layout ``layout_of()``.  On the card without ``group`` the
     iterations are CUDA-graph replays on static copies of the inputs
     (``gn_graph.run``), else they run eagerly on the inputs themselves."""
     def program(x, layout_of):
-        stats_eq = make_stats_eq(x, layout_of)
-        return (lambda: _gn_start(stats_eq, x["inits"]),
-                lambda s: _gn_iteration(s, stats_eq, retract, relative_fitness,
-                                        relative_rmse))
+        sweep = make_sweep(x, layout_of)
+        return (lambda: _gn_start(sweep, x["inits"], x["n_src"], exp_retraction),
+                lambda s: _gn_iteration(s, sweep, x["n_src"], exp_retraction,
+                                        relative_fitness, relative_rmse))
 
     dev = inputs["inits"].device
     if group is None and gn_graph.uses_static_buffers(dev):
@@ -165,7 +139,7 @@ def _gauss_newton(kind: str, inputs: dict, make_stats_eq: Callable,
         n_tiles = layout.target.boxes.shape[-2]
         splits = (nn_layout.plan_splits(-(-m // nn_layout.GROUP), b, n_tiles, dev)
                   if dev.type == "cuda" else 0)
-        key = (kind, retract.__name__, dev, float(max_dist), relative_fitness, relative_rmse,
+        key = (kind, exp_retraction, dev, float(max_dist), relative_fitness, relative_rmse,
                n_tiles, splits, tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
         state = gn_graph.run(key, inputs, lambda x: program(x, lambda: _static_layout(x)),
                              max_iterations)
@@ -192,15 +166,10 @@ def _static_layout(x: dict) -> nn_layout.SweepLayout:
     return nn_layout.SweepLayout(nn_layout.bind(target, coords, x["tv"]), x["query_order"])
 
 
-def _stats(out: torch.Tensor, n_src: torch.Tensor, group=None):
-    """(JtJ, Jtr, fitness, rmse) of a fused kernel's output, summed over
-    ``group`` first when there is one."""
-    if group is not None:
-        out = collectives.gather_sum(out, group)
-    JtJ, Jtr, n_in, d2s = cuda_gicp.unpack(out)
-    fit = n_in / torch.clamp(n_src, min=1.0)
-    rmse = torch.sqrt(d2s / torch.clamp(n_in, min=1.0))
-    return JtJ, Jtr, fit, rmse
+def _summed(out: torch.Tensor, group) -> torch.Tensor:
+    """A fused kernel's output summed over ``group`` in rank order, when
+    there is one."""
+    return out if group is None else collectives.gather_sum(out, group)
 
 
 def _source_order(source: PointCloud, order: Optional[torch.Tensor]) -> torch.Tensor:
@@ -228,19 +197,18 @@ def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
         layout = nn_layout.layout_for(points.expand(b, m, 3), maskf, td, tv)
     nn_layout.check_layout(layout, b, m, td.shape[-1], points.device, td, tv)
 
-    def make_stats_eq(x, layout_of):
-        def stats_eq(T):
-            pts = se3.transform_points(T, x["points"]).contiguous()
-            qc = cuda_gicp.rotate_cov6(T[..., :3, :3], x["qcov6"]).contiguous()
+    def make_sweep(x, layout_of):
+        def sweep(P):
+            pts, qc = cuda_gn_step.gn_apply(P, x["points"], x["qcov6"])
             out = cuda_gicp.gicp_normal_eq(pts, x["maskf"], qc, x["td"], x["tv"], x["r2"],
                                            None, layout_of())
-            return _stats(out, x["n_src"], group)
-        return stats_eq
+            return _summed(out, group)
+        return sweep
 
     inputs = dict(inits=inits.contiguous(), points=points, maskf=maskf, n_src=n_src,
                   qcov6=qcov6, td=td, tv=tv, r2=_r2(max_dist, points.device))
-    return _gauss_newton("gicp", inputs, make_stats_eq, layout, max_dist, max_iterations,
-                         relative_fitness, relative_rmse, se3.se3_exp, group)
+    return _gauss_newton("gicp", inputs, make_sweep, layout, max_dist, max_iterations,
+                         relative_fitness, relative_rmse, True, group)
 
 
 def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dist,
@@ -259,19 +227,18 @@ def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dis
         layout = nn_layout.layout_for(points.expand(b, m, 3), maskf, t_t, tv)
     nn_layout.check_layout(layout, b, m, t_t.shape[-1], points.device, t_t, tv)
 
-    def make_stats_eq(x, layout_of):
-        def stats_eq(T):
-            pts = se3.transform_points(T, x["points"]).contiguous()
+    def make_sweep(x, layout_of):
+        def sweep(P):
+            pts, _ = cuda_gn_step.gn_apply(P, x["points"])
             out = cuda_icp.p2l_normal_eq(pts, x["maskf"], x["t_t"], x["tn_t"], x["tc"],
                                          x["tv"], x["r2"], layout_of())
-            return _stats(out, x["n_src"], group)
-        return stats_eq
+            return _summed(out, group)
+        return sweep
 
     inputs = dict(inits=inits.contiguous(), points=points, maskf=maskf, n_src=n_src,
                   t_t=t_t, tn_t=tn_t, tc=tc, tv=tv, r2=_r2(max_dist, inits.device))
-    return _gauss_newton("p2l", inputs, make_stats_eq, layout, max_dist, max_iterations,
-                         relative_fitness, relative_rmse,
-                         se3.se3_exp if use_exp_retraction else _euler_xyz_transform, group)
+    return _gauss_newton("p2l", inputs, make_sweep, layout, max_dist, max_iterations,
+                         relative_fitness, relative_rmse, use_exp_retraction, group)
 
 
 def point_to_plane_target(grid: HashGrid) -> tuple:

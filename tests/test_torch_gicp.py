@@ -19,7 +19,7 @@ import torch
 from open3d_slam_tpu.ops import normals as jn, pallas_gicp as jg, pallas_icp
 from open3d_slam_tpu.ops import registration as jreg
 from open3d_slam_tpu.utils import pointcloud as jpc
-from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_normals
+from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_gn_step, cuda_normals
 from open3d_slam_torch.ops import registration as treg
 from open3d_slam_torch.ops.hashgrid import HashGrid
 from open3d_slam_torch.utils import pointcloud as tpc
@@ -150,7 +150,8 @@ def test_solve6_matches_jax(rng):
     JtJ = A @ A.T + np.eye(6, dtype=np.float32)
     Jtr = rng.normal(size=6).astype(np.float32)
     want = np.asarray(jreg._solve6(jnp.asarray(JtJ), jnp.asarray(Jtr)))
-    got = treg._solve6(torch.from_numpy(JtJ)[None], torch.from_numpy(Jtr)[None])[0]
+    got = cuda_gn_step.solve6_chain(torch.from_numpy(JtJ)[None],
+                                    torch.from_numpy(Jtr)[None])[0]
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 

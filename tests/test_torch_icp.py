@@ -20,7 +20,7 @@ import torch
 from open3d_slam_tpu.ops import hashgrid as jh, normals as jn, pallas_icp
 from open3d_slam_tpu.ops import registration as jreg
 from open3d_slam_tpu.utils import pointcloud as jpc, se3 as jse3
-from open3d_slam_torch.ops import cuda_icp as ti
+from open3d_slam_torch.ops import cuda_gn_step, cuda_icp as ti
 from open3d_slam_torch.ops import registration as treg
 from open3d_slam_torch.ops.hashgrid import HashGrid
 from open3d_slam_torch.utils import pointcloud as tpc
@@ -264,7 +264,7 @@ def test_evaluate_registration_matches_jax(grid_pair):
 def test_euler_retraction_and_result_stats_match_jax(rng):
     x = rng.normal(scale=0.2, size=(5, 6)).astype(np.float32)
     want = np.asarray(jreg._euler_xyz_transform(jnp.asarray(x)))
-    got = treg._euler_xyz_transform(torch.from_numpy(x)).numpy()
+    got = cuda_gn_step.euler_xyz_transform(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6)
     d2 = rng.uniform(0, 1, 64).astype(np.float32)
     w = rng.uniform(size=64) > 0.4

@@ -42,7 +42,7 @@ import pytest
 import torch
 
 from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_icp as ti
-from open3d_slam_torch.ops import cuda_knn as tk, hashgrid, nn_layout
+from open3d_slam_torch.ops import cuda_knn as tk, gn_graph, hashgrid, nn_layout
 from open3d_slam_torch.ops import cuda_normals as tcn
 from open3d_slam_torch.ops import normals as tn
 from open3d_slam_torch.utils import pointcloud as tpc
@@ -212,17 +212,13 @@ def test_kth_prepass_kernel_equals_plain_on_card(cuda_device, rng, m, n, case):
     if case == "far_group":
         assert bool((want[-10:] == cap).all())
     layout = tcn.normals_layout(q, pts, mask)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        tcn.kth_neighbor_d2_within(q, pts, mask, k, 3.0, layout)
-        torch.cuda.synchronize()
-    names = [e.name for e in sorted((e for e in prof.events()
-                                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                                    key=lambda e: e.time_range.start)]
+    names, again = gn_graph.graph_nodes(
+        lambda: tcn.kth_neighbor_d2_within(q, pts, mask, k, 3.0, layout), cuda_device)
     splits = tcn.plan_splits(m, layout.target.boxes.shape[0], cuda_device,
                              tcn._KTH_MAX_SPLITS)
     assert len(names) == (1 if splits == 1 else 2) and "kth_sweep" in names[0], names
     assert splits == 1 or "kth_merge" in names[1], names
+    assert torch.equal(again, want)
 
 
 @pytest.mark.cuda
@@ -437,14 +433,8 @@ def test_nn_argmin_within_is_two_kernel_launches_on_card(cuda_device, rng):
     queries = queries.contiguous().to(cuda_device)
     layout = _knn_layout(pts, np.ones(4096, bool), queries, None)
     first = tk.nn_argmin_within(queries, None, layout, 0.3)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        again = tk.nn_argmin_within(queries, None, layout, 0.3)
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    names = [e.name for e in sorted((e for e in prof.events() if e.device_type == cuda),
-                                    key=lambda e: e.time_range.start)]
+    names, again = gn_graph.graph_nodes(lambda: tk.nn_argmin_within(queries, None, layout, 0.3),
+                                        cuda_device)
     assert len(names) == 2, names
     assert "knn_sweep" in names[0] and "knn_decode" in names[1], names
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
@@ -616,14 +606,7 @@ def test_one_call_is_two_kernel_launches_on_card(cuda_device, kernel):
     call = ((lambda: ti.p2l_normal_eq(*args, layout)) if kernel == "p2l"
             else (lambda: tg.gicp_normal_eq(*args, None, layout)))
     first = call()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        again = call()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    names = [e.name for e in sorted((e for e in prof.events() if e.device_type == cuda),
-                                    key=lambda e: e.time_range.start)]
+    names, again = gn_graph.graph_nodes(call, cuda_device)
     assert len(names) == 2, names
     assert "nn_sweep" in names[0] and "_rows" in names[1], names
     assert torch.equal(first, again)
@@ -741,7 +724,7 @@ def test_gn_iteration_math_captures_bit_equal_on_card(cuda_device, rng, batch):
     jittered 6x6 Cholesky solve, both retractions, the frozen update, the
     point transform and the covariance rotation) capture into a CUDA graph
     and replay to the eager result's bits."""
-    from open3d_slam_torch.ops import registration as treg
+    from open3d_slam_torch.ops import cuda_gn_step
     from open3d_slam_torch.utils import se3
     A = rng.normal(size=(batch, 6, 12)).astype(np.float32)
     JtJ = torch.from_numpy(A @ A.transpose(0, 2, 1)).to(cuda_device)
@@ -753,9 +736,9 @@ def test_gn_iteration_math_captures_bit_equal_on_card(cuda_device, rng, batch):
     cov6 = torch.from_numpy(rng.normal(size=(batch, 2048, 6)).astype(np.float32)).to(cuda_device)
 
     def step():
-        delta = treg._solve6(JtJ, Jtr)
+        delta = cuda_gn_step.solve6_chain(JtJ, Jtr)
         outs = [delta]
-        for retract in (se3.se3_exp, treg._euler_xyz_transform):
+        for retract in (se3.se3_exp, cuda_gn_step.euler_xyz_transform):
             T_new = torch.where(done[:, None, None], T, retract(delta) @ T)
             outs += [T_new, se3.transform_points(T_new, pts).contiguous(),
                      tg.rotate_cov6(T_new[..., :3, :3], cov6).contiguous()]
@@ -852,9 +835,8 @@ def test_graphed_loop_equals_eager_loop_on_card(cuda_device, rng, monkeypatch, k
         got, got_n, got_syncs = _counted(run)
         assert _same_result(first, want) and _same_result(got, want)
         assert got_n == want_n and got_syncs == want_syncs
-        warm = {(kernel, (batch, m, n)): 2}
-        if batch > 1:
-            warm[("solve6", (batch,))] = 1
+        warm = {(kernel, (batch, m, n)): 2, ("gn_step", (batch,)): 2,
+                ("gn_apply", (batch, m, 9 if kind == "gicp" else 3)): 2}
         assert dict(first_n - want_n) == (warm if iters == 50 else {})
     assert float(want.fitness.min()) > 0.5
     dev = want.transformation.device          # cuda:<index>, as the loops key it
@@ -867,18 +849,18 @@ def _refuse_a_capture(rng, dev, monkeypatch):
     """Runs a point-to-plane loop whose iteration reads the host, which its
     capture refuses: the run raises.  Returns the loop's ``run()``, with
     the iteration restored."""
-    from open3d_slam_torch.ops import registration as treg
+    from open3d_slam_torch.ops import cuda_gn_step
     run = _loop_problem(rng, dev, "p2l", 1, 4096, 16384, 50)
-    solve6 = treg._solve6
+    gn_step = cuda_gn_step.gn_step
 
-    def reads_the_host(JtJ, Jtr):
-        float(JtJ.sum())
-        return solve6(JtJ, Jtr)
+    def reads_the_host(out, *args, **kwargs):
+        float(out.sum())
+        return gn_step(out, *args, **kwargs)
 
-    monkeypatch.setattr(treg, "_solve6", reads_the_host)
+    monkeypatch.setattr(cuda_gn_step, "gn_step", reads_the_host)
     with pytest.raises(RuntimeError):
         run()
-    monkeypatch.setattr(treg, "_solve6", solve6)
+    monkeypatch.setattr(cuda_gn_step, "gn_step", gn_step)
     return run
 
 
@@ -900,6 +882,30 @@ def test_failed_capture_raises_on_card(cuda_device, rng, monkeypatch):
     assert _same_result(run(), want)
     assert gn_graph.captured() == (1, 3)
     gn_graph.clear()
+
+
+@pytest.mark.cuda
+def test_refused_capture_in_graph_nodes_leaves_the_caller_as_it_was_on_card(cuda_device, rng):
+    """A call that reads the host cannot be captured: ``graph_nodes``
+    raises, leaves this thread on the stream it was on, retires the side
+    stream, and leaves no launch of its warm-up or capture counted; the
+    next count reads the call's one kernel and replays to its result."""
+    from open3d_slam_torch.ops import cuda_gn_step
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pts = torch.from_numpy(rng.normal(size=(1, 4096, 3)).astype(np.float32)).to(dev)
+    T = torch.eye(4, device=dev)[None].contiguous()
+    side = gn_graph._side_stream(dev)
+    before = torch.cuda.current_stream(dev)
+    counts = dict(cuda_build.launches)
+    with pytest.raises(RuntimeError):
+        gn_graph.graph_nodes(lambda: float(cuda_gn_step.gn_apply(T, pts)[0].sum()), dev)
+    assert torch.cuda.current_stream(dev) == before
+    assert gn_graph._side_stream(dev) is not side
+    assert dict(cuda_build.launches) == counts
+    names, (moved, _) = gn_graph.graph_nodes(lambda: cuda_gn_step.gn_apply(T, pts), dev)
+    assert len(names) == 1 and "gn_apply" in names[0], names
+    assert torch.equal(moved, cuda_gn_step.gn_apply_plain(T, pts)[0])
+    assert dict(cuda_build.launches) == counts
 
 
 def _pose_graph_worker(rng, dev, monkeypatch):
@@ -1055,6 +1061,130 @@ def test_solve6_kernel_equals_plain_on_card(cuda_device, rng, batch):
     lib = torch.cholesky_solve(-Jtr[..., None], L)[..., 0]
     scale = lib.abs().amax(-1, keepdim=True)
     assert float(((got - lib).abs() / scale).max()) < 1e-3
+
+
+GN_TOL = 1e-5    # the step's poses: R entries; t within GN_TOL (1 + |t|)
+
+
+def _gn_inputs(rng, dev, batch):
+    """A fused kernel's (B, 8, 128) output (positive definite JtJ, Jtr, the
+    inlier count and d2 sum; some elements with no inliers), the valid
+    source counts, the poses P and a state before them with a third of the
+    elements done and some changes of fitness and RMSE below the stop
+    test's thresholds."""
+    from open3d_slam_torch.utils import se3
+    A = rng.normal(size=(batch, 6, 12)).astype(np.float32)
+    out = np.zeros((batch, 8, 128), np.float32)
+    out[:, :6, :6] = A @ A.transpose(0, 2, 1) * rng.uniform(1, 1e3, size=(batch, 1, 1))
+    out[:, :6, 6] = rng.normal(scale=0.1, size=(batch, 6))
+    out[:, 7, 0] = np.floor(rng.uniform(0, 16384, size=batch))
+    out[:, 7, 1] = out[:, 7, 0] * rng.uniform(0.001, 0.05, size=batch)
+    out[::7, 7, :2] = 0.0
+    n_src = np.floor(rng.uniform(16384, 20000, size=batch)).astype(np.float32)
+    xi = np.concatenate([rng.normal(scale=0.3, size=(batch, 3)),
+                         rng.normal(scale=5.0, size=(batch, 3))], 1).astype(np.float32)
+    P = se3.se3_exp(torch.from_numpy(xi)).contiguous()
+    fit = out[:, 7, 0] / np.maximum(n_src, 1.0)
+    rmse = np.sqrt(out[:, 7, 1] / np.maximum(out[:, 7, 0], 1.0))
+    fit = (fit + np.resize([0.0, 5e-7, 1e-3], batch)).astype(np.float32)
+    rmse = (rmse + np.resize([5e-7, 0.0, 1e-3], batch)).astype(np.float32)
+    it = rng.integers(0, 30, size=batch).astype(np.int32)
+    done = np.arange(batch) % 3 == 1
+    t = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+    from open3d_slam_torch.ops.gn_graph import GNState
+    prev = GNState(P.to(dev), P.to(dev), t(fit), t(rmse), t(it), t(done))
+    return t(out), t(n_src), P.to(dev), prev
+
+
+def _poses_close(got, want, tol=GN_TOL):
+    dR = (got[:, :3, :3] - want[:, :3, :3]).abs().amax((-1, -2))
+    dt = ((got[:, :3, 3] - want[:, :3, 3]).abs().amax(-1)
+          / (1.0 + want[:, :3, 3].abs().amax(-1)))
+    return float(torch.maximum(dR, dt).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 5, 64, 1024])
+@pytest.mark.parametrize("exp_retraction", [True, False])
+def test_gn_step_kernel_matches_plain_on_card(cuda_device, rng, batch, exp_retraction):
+    """The step kernel against its plain version (the loops' earlier chain)
+    on the card, at the start and in an iteration: the solve bit-equal to
+    ``solve6_plain`` (the shared ``solve6.cuh``), the fitness, RMSE,
+    iteration counts and done flags equal, T the poses swept, the next
+    poses within ``GN_TOL`` (the chain's products are cuBLAS's, its B = 1
+    solve cuSOLVER's); done elements keep their poses."""
+    from open3d_slam_torch.ops import cuda_gn_step, cuda_solve6
+    out, n_src, P, prev = _gn_inputs(rng, cuda_device, batch)
+    done = []
+    for before, ns in ((None, n_src), (prev, n_src), (prev, n_src[:1].reshape(()))):
+        delta = torch.empty((batch, 6), device=cuda_device)
+        got = cuda_gn_step.gn_step(out, ns, P, before, exp_retraction, 1e-6, 1e-6, delta)
+        want = cuda_gn_step.gn_step_plain(out, ns, P, before, exp_retraction, 1e-6, 1e-6)
+        JtJ, Jtr, _, _ = tg.unpack(out)
+        assert torch.equal(delta, cuda_solve6.solve6_plain(JtJ, Jtr))
+        for name in ("T", "fit", "rmse", "it", "done"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert _poses_close(got.P, want.P) <= GN_TOL
+        assert torch.equal(got.P[got.done], P[got.done])
+        done.append(got.done)
+    if batch > 1:                # the iteration with the state's own counts
+        assert bool(done[1].any()) and not bool(done[1].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m,lead,cov", [
+    (1, 16384, 1, True), (1, 4096, 1, True), (1, 16384, 1, False), (64, 2048, 0, False),
+    (4, 1001, 4, True), (3, 1024, 1, True), (128, 1024, 128, False)])
+def test_gn_apply_kernel_equals_plain_on_card(cuda_device, rng, batch, m, lead, cov):
+    """The point-apply kernel bit-equal to its plain version on the card:
+    points shared by every pose (M, 3) or (1, M, 3), or one cloud a pose;
+    with and without covariances; M not a multiple of 4 (one point at a
+    time) and a batch stride that breaks 16-byte alignment."""
+    from open3d_slam_torch.ops import cuda_gn_step
+    from open3d_slam_torch.utils import se3
+    xi = np.concatenate([rng.normal(scale=0.5, size=(batch, 3)),
+                         rng.normal(scale=10.0, size=(batch, 3))], 1).astype(np.float32)
+    T = se3.se3_exp(torch.from_numpy(xi)).contiguous().to(cuda_device)
+    shape = (m, 3) if lead == 0 else (lead, m, 3)
+    pts = torch.from_numpy(rng.normal(scale=20.0, size=shape).astype(np.float32)).to(
+        cuda_device)
+    c6 = None
+    if cov:
+        c6 = torch.from_numpy(rng.normal(size=(max(lead, 1), m, 6)).astype(np.float32)).to(
+            cuda_device)
+    got = cuda_gn_step.gn_apply(T, pts, c6)
+    want = cuda_gn_step.gn_apply_plain(T, pts, c6)
+    assert torch.equal(got[0], want[0]) and got[0].is_contiguous()
+    assert (got[1] is None) == (not cov)
+    if cov:
+        assert torch.equal(got[1], want[1]) and got[1].is_contiguous()
+    if lead > 1:                 # a batch stride that is not a multiple of 4 floats
+        wide = torch.zeros((lead, m + 1, 3), device=cuda_device)
+        wide[:, :m] = pts
+        assert torch.equal(cuda_gn_step.gn_apply(T, wide[:, :m], None)[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gicp", "p2l"])
+def test_graphed_iteration_is_the_sweep_and_two_kernels_on_card(cuda_device, rng,
+                                                                 monkeypatch, kind):
+    """One iteration of the B = 1 loop, as the loop's graphs capture it,
+    puts on the card the point apply, K1's or K4's sweep and row kernel,
+    and the step, and nothing else (counted from a CUDA graph of the
+    iteration on the loop's own static buffers)."""
+    from open3d_slam_torch.ops import gn_graph
+    gn_graph.clear()
+    monkeypatch.setattr(gn_graph, "MODE", "graph")
+    run = _loop_problem(rng, cuda_device, kind, 1, 4096, 16384, 8)
+    run()
+    (loop,) = gn_graph._entries.values()
+    names, state = gn_graph.graph_nodes(lambda: loop.step(loop.state), cuda_device)
+    rows = "gicp_rows" if kind == "gicp" else "p2l_rows"
+    assert len(names) == 4, names
+    assert ("gn_apply" in names[0] and "nn_sweep" in names[1] and rows in names[2]
+            and "gn_step" in names[3]), names
+    assert torch.equal(state.T, loop.state.P)
+    gn_graph.clear()
 
 
 P2P_TOL = 1e-5   # R entries; t within P2P_TOL (1 + |p_bar|), as tests/test_torch_p2p.py
