@@ -1790,18 +1790,18 @@ class SolveProbe:
         self.pg_ops.optimize = self.optimize
 
 
-def optimization_breakdown(telemetry):
-    """The closure stages' timers of a replay (device ms between CUDA
-    events): ``optimization`` and its parts, the loop-closure job's phases
-    (``lc_*``), a finished submap's features and odometry constraints:
-    {name: (calls, total ms)}."""
-    import torch
-    torch.cuda.synchronize()
+def optimization_breakdown(before):
+    """The closure stages' spans since ``before`` (what
+    ``telemetry.totals()`` read then; host ms of the recorder's ``STATS``
+    state): ``optimization.*`` and the ``closure.*`` spans (a finished
+    submap's features and odometry constraints, the loop-closure job's start
+    and phases): {name: (calls, total ms)}."""
+    from open3d_slam_torch.utils.timeutil import telemetry
     out = {}
-    for name, t in sorted(telemetry.timers.items()):
-        if name.startswith(("optimization", "lc_", "submap_features", "odometry_constraints")):
-            t.resolve()
-            out[name] = (t.count, t.avg_ms * t.count)
+    for name, (n, ms) in telemetry.totals().items():
+        n0, ms0 = before.get(name, (0, 0.0))
+        if name.startswith(("optimization.", "closure.")) and n > n0:
+            out[name] = (n - n0, ms - ms0)
     return out
 
 
@@ -1841,7 +1841,7 @@ def pose_graph_routes(probe, routes, cuda_build, devmod, breakdown, per_scan_ms,
           f"{len(probe.calls)} solves in step 5; {name_power}", flush=True)
     for name, (calls, total) in breakdown.items():
         print(f"  step 5 timer {name}: {calls} calls, {total:.3f} ms in all "
-              f"({total / max(calls, 1):.3f} ms each; device ms between CUDA events)")
+              f"({total / max(calls, 1):.3f} ms each; host ms)")
     slowest = sorted(range(len(per_scan_ms)), key=lambda i: -per_scan_ms[i])[:4]
     print(f"  step 5's scans that ran a solve (index: host ms) "
           f"{ {i: round(per_scan_ms[i], 2) for i in solve_scans} }; the slowest "
@@ -2035,7 +2035,7 @@ def main() -> int:
                                            pose_graph)
         from open3d_slam_torch.parallel import multi_start
         from open3d_slam_torch.utils import config as cfg, device as devmod, evaluation
-        from open3d_slam_torch.utils import pointcloud as pclib
+        from open3d_slam_torch.utils import pointcloud as pclib, timeutil
     except ImportError as e:
         fail(f"the port package is not beside this script ({e})")
 
@@ -2181,13 +2181,14 @@ def main() -> int:
     probe = SolveProbe(pose_graph)
     probe.install()
     starts = []
+    totals_before = timeutil.telemetry.totals()
     per_scan_ms, wall_s, full_key, syncs = replay(slam, scans, cuda_build, devmod, starts)
     probe.remove()
     # The scans whose pipelined step ran a solve.
     solve_scans = [max(i for i, t in enumerate(starts) if t <= c) for c in probe.times]
     poses, ate, rpe = check_trajectory(slam, seq, n, evaluation)
     health = slam.get_health()
-    breakdown = optimization_breakdown(slam.telemetry)
+    breakdown = optimization_breakdown(totals_before)
     q = np.percentile(per_scan_ms, [50, 99])
     print(f"replay (full configuration): {n} scans, per-scan p50 {q[0]:.2f} ms, "
           f"p99 {q[1]:.2f} ms, max {max(per_scan_ms):.2f} ms, mean "

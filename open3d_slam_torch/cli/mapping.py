@@ -7,12 +7,16 @@ layered config, replay a scan sequence as fast as possible (pipelined unless
 stopping after a wall-clock budget, ``finish_processing``, save the map,
 the submaps or the dense submaps, then evaluate the trajectory against the
 sequence's ground truth.  Runs on ``cuda`` unless ``--device cpu`` is given.
+With ``--trace-out PATH`` the program's spans (``utils.timeutil.telemetry``)
+are recorded from the warm-up's end to the replay's and written to PATH
+as Chrome-trace JSON, on the Unix clock a ``torch.profiler`` export uses.
 
 Usage:
   python -m open3d_slam_torch.cli.mapping --sim vlp16_yard_circle
       [--device cuda|cpu] [--max-scans N] [--param <yaml>] [--undistort]
       [--eval-json PATH] [--save-map] [--save-submaps] [--save-dense-submaps]
       [--save-folder DIR] [--num-accumulated-range-data N] [--max-wall-sec S]
+      [--trace-out PATH]
   python -m open3d_slam_torch.cli.mapping --kitti DIR   (velodyne/*.bin,
       times.txt, poses.txt; the HDL-64 config unless --param is given)
   python -m open3d_slam_torch.cli.mapping --sequence DIR --param <yaml>
@@ -34,6 +38,7 @@ from open3d_slam_torch.io import datasets, lidar_sim
 from open3d_slam_torch.models.slam_wrapper import SlamWrapper
 from open3d_slam_torch.utils import config as cfg, evaluation
 from open3d_slam_torch.utils.device import resolve_device
+from open3d_slam_torch.utils.timeutil import telemetry
 
 SKIP_FIRST_N_POINT_CLOUDS = 5  # magic.hpp:15, DataProcessorRos.cpp:34-41
 
@@ -76,6 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-pipeline", action="store_true",
                     help="serialize the per-scan stages instead of the default "
                          "pipelined replay")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="record the program's spans and write them to PATH as "
+                         "Chrome-trace JSON (Unix microseconds) when the replay ends")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -194,9 +202,16 @@ def main(argv=None) -> int:
     t0 = time.time()
     slam.warmup(scans=seq.scans[:n_skip], timestamps=seq.timestamps[:n_skip])
     print(f"warmed up in {time.time() - t0:.1f} s")
+    if args.trace_out:
+        telemetry.start_recording()
     rtf = run_sequence(slam, seq, skip_first=n_skip, pipelined=not args.no_pipeline,
                        num_accumulated=args.num_accumulated_range_data,
                        max_wall_sec=args.max_wall_sec)
+    if args.trace_out:
+        rec = telemetry.stop_recording()
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace_out)), exist_ok=True)
+        rec.write_chrome_trace(args.trace_out)
+        print(f"wrote {len(rec.spans)} spans to {args.trace_out}")
     if params.saving.is_save_map or params.saving.is_save_at_mission_end:
         print("saved map to", slam.save_map())
     if params.saving.is_save_submaps:

@@ -17,6 +17,7 @@ from open3d_slam_torch.ops import normals as normals_ops
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils.config import CloudRegistrationParameters, IcpParameters
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
 
 class PreparedCloud(NamedTuple):
@@ -36,6 +37,7 @@ class PreparedCloud(NamedTuple):
             self.grid, None if self.kernel_target is None else self.kernel_target[-1])
 
 
+@telemetry.staged("target_prep")
 def _prepare_target_fn(pc: PointCloud, cell: float, with_covs: bool,
                        with_kernel_target: bool = False) -> PreparedCloud:
     """Identity-order target: the fused kernel needs only the validity
@@ -96,6 +98,7 @@ class CloudRegistrationStrategy:
         return _prepare_target_fn(pc, cell, with_covs=self.reg_type == "GeneralizedIcp",
                                   with_kernel_target=self.needs_kernel_target())
 
+    @telemetry.staged("register")
     def register(self, source: PointCloud, target: PreparedCloud,
                  init: torch.Tensor, source_order: Optional[torch.Tensor] = None
                  ) -> registration.RegistrationResult:

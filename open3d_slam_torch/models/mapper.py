@@ -24,6 +24,7 @@ from open3d_slam_torch.utils import pointcloud as pclib
 from open3d_slam_torch.utils.config import MapperParameters
 from open3d_slam_torch.utils.device import to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
 
 class MapperPending:
@@ -101,12 +102,14 @@ class Mapper:
         self.map_to_range_sensor = T.copy()
         self.is_new_initial_value_set = True
 
+    @telemetry.spanned("mapper.preprocess")
     def preprocess_scan(self, raw_scan: PointCloud):
         """Pose-independent preprocessing (phase A of the mapping dispatch),
         ``ScanToMapRegistration.cpp:42-54``."""
         return self.scan_to_map_reg.process_for_scan_matching_and_merging(
             raw_scan, self.map_to_range_sensor)
 
+    @telemetry.spanned("mapper.dispatch")
     def dispatch_range_measurement(self, raw_scan: PointCloud, timestamp: float,
                                    odom_pending=None, processed=None):
         """``addRangeMeasurement`` (``Mapper.cpp:101-181``), dispatch half.
@@ -179,6 +182,7 @@ class Mapper:
             return None, True
         return MapperPending(timestamp, raw_scan, processed, result, odom_pending), True
 
+    @telemetry.spanned("mapper.finalize")
     def finalize_range_measurement(self, mp: MapperPending) -> bool:
         """Finalize half: the ONE blocking device->host pull per scan, then
         the host gates and the submap insert (``Mapper.cpp:151-181``)."""

@@ -26,6 +26,7 @@ from open3d_slam_torch.utils import pointcloud as pclib, se3
 from open3d_slam_torch.utils.config import OdometryParameters
 from open3d_slam_torch.utils.device import to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
 
 class UniformScores:
@@ -50,12 +51,15 @@ def preprocess_chain(cloud: PointCloud, cropper, radius: float,
     """crop -> voxelize -> [random downsample -> compact] -> normals
     (``Odometry.cpp:25-30`` order).  With a downsample, normals are
     estimated only at the kept points with the FULL voxelized cloud as
-    support, which gives the same planes as estimate-then-downsample."""
-    cropped = cropper.crop(cloud)
-    down = voxel.voxel_downsample(cropped, voxel_size, out_capacity=out_capacity)
+    support, which gives the same planes as estimate-then-downsample.  The
+    crop and the downsampling are the caller's layer's ``downsample`` span."""
+    with telemetry.stage("downsample"):
+        cropped = cropper.crop(cloud)
+        down = voxel.voxel_downsample(cropped, voxel_size, out_capacity=out_capacity)
+        if n_keep > 0:
+            kept = voxel.random_downsample(down, n_keep, draw_scores(out_capacity))
+            kept = pclib.compact_to(kept, keep_capacity)
     if n_keep > 0:
-        kept = voxel.random_downsample(down, n_keep, draw_scores(out_capacity))
-        kept = pclib.compact_to(kept, keep_capacity)
         if needs_normals:
             kept = normals_ops.estimate_normals_at(kept, down, radius, max_nn=max_nn)
         return kept
@@ -103,6 +107,7 @@ class LidarOdometry:
     def _eye(self) -> torch.Tensor:
         return torch.eye(4, dtype=torch.float32, device=self.device)
 
+    @telemetry.spanned("odometry.preprocess")
     def preprocess(self, cloud: PointCloud) -> PointCloud:
         sp = self.params.scan_processing
         ratio = sp.down_sampling_ratio
@@ -115,6 +120,7 @@ class LidarOdometry:
             needs_normals=self.registration.needs_normals(),
             max_nn=self.params.scan_matcher.icp.knn)
 
+    @telemetry.spanned("odometry.scan")
     def add_range_scan_async(self, cloud: PointCloud, timestamp: float):
         """Dispatch one odometry step without blocking.  Returns an
         ``OdometryPending``, True for the first scan, False for an

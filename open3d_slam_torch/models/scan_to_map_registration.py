@@ -25,6 +25,7 @@ from open3d_slam_torch.utils import pointcloud as pclib
 from open3d_slam_torch.utils.config import MapperParameters
 from open3d_slam_torch.utils.device import to_device
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
 
 class ProcessedScans(NamedTuple):
@@ -32,6 +33,7 @@ class ProcessedScans(NamedTuple):
     merge: PointCloud
 
 
+@telemetry.spanned("mapper.patch_prepare")
 def _patch_prepare(map_cloud: PointCloud, cropper, pose_t: torch.Tensor,
                    cell: float, patch_capacity: int, with_covs: bool,
                    with_kernel_target: bool = False) -> PreparedCloud:

@@ -14,6 +14,11 @@ reference's worker threads become a sequential, deterministic host pipeline
 feeding the device (``models/async_driver.py`` runs it in one worker thread
 beside the caller's ingest).
 
+Each ingested scan gets a sequence number, and every span of
+``utils.timeutil.telemetry`` opened while it is processed carries it: on the
+pipelined path the call's scan (its ``slam_wrapper.scan`` root holds the
+finalize of the scan before it), on the worker the scan the stage popped.
+
 Localization mode: ``set_initial_map`` and ``set_initial_transform``.  The
 wrapper runs on ``cuda`` unless the caller asks for another device.
 """
@@ -37,16 +42,22 @@ from open3d_slam_torch.ops import motion_compensation as mc_ops
 from open3d_slam_torch.utils import pointcloud as pclib
 from open3d_slam_torch.utils.config import SlamParameters
 from open3d_slam_torch.utils.device import resolve_device, to_device, to_host
-from open3d_slam_torch.utils.timeutil import TelemetryRegistry
+from open3d_slam_torch.utils.timeutil import telemetry
+
+
+# The loop-closure job's phases (``PlaceRecognition.advance_loop_closure_job``)
+# as spans.
+_PHASE_SPANS = {"ransac": "closure.ransac", "refine": "closure.refine"}
 
 
 class TimestampedPointCloud:
-    __slots__ = ("time", "cloud", "odom_pending")
+    __slots__ = ("time", "cloud", "odom_pending", "seq")
 
-    def __init__(self, time, cloud, odom_pending=None):
+    def __init__(self, time, cloud, odom_pending=None, seq=-1):
         self.time = time
         self.cloud = cloud
         self.odom_pending = odom_pending   # OdometryPending riding along
+        self.seq = seq                     # the wrapper's ingest number
 
 
 class SlamWrapper:
@@ -55,8 +66,9 @@ class SlamWrapper:
         p = self.params
         self.device = resolve_device(device)
         cap = p.capacities
-        self.telemetry = TelemetryRegistry(
-            enabled=p.mapper.is_print_timing_statistics, device=self.device)
+        self._print_timing = p.mapper.is_print_timing_statistics
+        if self._print_timing:
+            telemetry.use_stats()
         self.odometry = LidarOdometry(p.odometry,
                                       processed_capacity=cap.processed_scan,
                                       device=self.device)
@@ -88,26 +100,32 @@ class SlamWrapper:
         self._map_pending = None
         self._lc_job = None                          # in-flight loop-closure job
         self._pending_constraint_pulls: List = []    # queued, not yet pulled
+        self.next_scan_seq = 0                       # the next ingest's number
 
     # ------------------------------------------------------------------
     # Ingest (SlamWrapper::addRangeScan, :102-115)
 
     def add_range_scan(self, points: np.ndarray, timestamp: float,
                        colors: Optional[np.ndarray] = None) -> bool:
-        """Ingest one scan (NaN rows dropped, out-of-order scans refused)."""
-        finite = np.isfinite(points).all(axis=1)
-        points = points[finite]
-        if colors is not None:
-            colors = np.asarray(colors, np.float32)[finite]
-        back = self.odometry_buffer.peek_back()
-        if back is not None and timestamp < back.time:
-            print("you are trying to add a range scan out of order! Dropping!")
-            return False
-        cloud = pclib.from_numpy(points.astype(np.float32),
-                                 capacity=self._raw_capacity, colors=colors,
-                                 device=self.device)
-        self.odometry_buffer.push(TimestampedPointCloud(timestamp, cloud))
-        return True
+        """Ingest one scan (NaN rows dropped, out-of-order scans refused);
+        every call takes the next sequence number."""
+        seq = self.next_scan_seq
+        self.next_scan_seq += 1
+        telemetry.set_scan(seq)
+        with telemetry.span("slam_wrapper.ingest"):
+            finite = np.isfinite(points).all(axis=1)
+            points = points[finite]
+            if colors is not None:
+                colors = np.asarray(colors, np.float32)[finite]
+            back = self.odometry_buffer.peek_back()
+            if back is not None and timestamp < back.time:
+                print("you are trying to add a range scan out of order! Dropping!")
+                return False
+            cloud = pclib.from_numpy(points.astype(np.float32),
+                                     capacity=self._raw_capacity, colors=colors,
+                                     device=self.device)
+            self.odometry_buffer.push(TimestampedPointCloud(timestamp, cloud, seq=seq))
+            return True
 
     def is_odometry_buffer_full(self) -> bool:
         return self.odometry_buffer.full()
@@ -118,6 +136,7 @@ class SlamWrapper:
     # ------------------------------------------------------------------
     # Stages
 
+    @telemetry.spanned("slam_wrapper.undistort")
     def _undistort(self, measurement: TimestampedPointCloud, which: str):
         """Constant-velocity undistortion with the velocity of the last
         ``num_poses_velocity_estimation`` poses of the odometry (``which`` =
@@ -149,16 +168,20 @@ class SlamWrapper:
         measurement = self.odometry_buffer.pop()
         if measurement is None:
             return False
-        with self.telemetry.timer("odometry", sampled=True):
-            cloud = self._undistort(measurement, "odom")
-            r = self.odometry.add_range_scan_async(cloud, measurement.time)
+        telemetry.set_scan(measurement.seq)
+        cloud = self._undistort(measurement, "odom")
+        r = self.odometry.add_range_scan_async(cloud, measurement.time)
         measurement.odom_pending = None if isinstance(r, bool) else r
         if r is False:
             print(f"WARNING: odometry dropped scan at t={measurement.time}; "
                   "pose not updated for this scan")
         self.mapping_buffer.push(measurement)
-        self.telemetry.maybe_print()
+        self._maybe_print()
         return True
+
+    def _maybe_print(self, force: bool = False):
+        if self._print_timing:
+            telemetry.maybe_print(force)
 
     def _mapping_step(self) -> bool:
         """mappingWorker body (:290-347): dispatch + immediate finalize."""
@@ -166,12 +189,12 @@ class SlamWrapper:
         measurement = self.mapping_buffer.pop()
         if measurement is None:
             return flushed
-        with self.telemetry.timer("mapping", sampled=True):
-            cloud = self._undistort(measurement, "map")
-            mp, _ = self.mapper.dispatch_range_measurement(
-                cloud, measurement.time, odom_pending=measurement.odom_pending)
-            if mp is not None:
-                self.mapper.finalize_range_measurement(mp)
+        telemetry.set_scan(measurement.seq)
+        cloud = self._undistort(measurement, "map")
+        mp, _ = self.mapper.dispatch_range_measurement(
+            cloud, measurement.time, odom_pending=measurement.odom_pending)
+        if mp is not None:
+            self.mapper.finalize_range_measurement(mp)
         self._after_mapping(measurement, cloud)
         return True
 
@@ -183,14 +206,14 @@ class SlamWrapper:
         (:388-405).  The dense stage reads nothing back from the device."""
         self.latest_scan_to_map_refinement_time = measurement.time
         if self.params.mapper.is_build_dense_map:
-            with self.telemetry.timer("dense_map", sampled=True):
+            with telemetry.span("submap.insert_dense"):
                 self.submaps.insert_scan_dense_map(
                     cloud, self.mapper.map_to_range_sensor, measurement.time)
         if self.params.mapper.is_attempt_loop_closures:
             self.compute_features_if_ready()
             self.attempt_loop_closures_if_ready()
         self.check_if_optimized_graph_available()
-        self.telemetry.maybe_print()
+        self._maybe_print()
 
     def _flush_map_pending(self) -> bool:
         """Finalize the in-flight pipelined mapping step, if any."""
@@ -198,20 +221,19 @@ class SlamWrapper:
             return False
         mp, measurement, cloud = self._map_pending
         self._map_pending = None
-        with self.telemetry.timer("mapping", sampled=True):
-            self.mapper.finalize_range_measurement(mp)
+        self.mapper.finalize_range_measurement(mp)
         self._after_mapping(measurement, cloud)
         return True
 
     # ------------------------------------------------------------------
     # Loop closure (loopClosureWorker, :406-448) and the graph update
 
+    @telemetry.spanned("closure.features")
     def compute_features_if_ready(self):
         finished = self.submaps.pop_finished_submap_ids()
         if finished:
-            with self.telemetry.timer("submap_features"):
-                self.submaps.compute_features(finished)
-            with self.telemetry.timer("odometry_constraints"):
+            self.submaps.compute_features(finished)
+            with telemetry.span("closure.odometry_constraints"):
                 # Queued only: the (T, info) outputs are prefetched and read
                 # when an optimisation round needs the constraints.
                 compute_odometry_constraints(
@@ -229,6 +251,7 @@ class SlamWrapper:
             self.loop_closure_candidates.extend(cands)
         self._advance_loop_closures()
 
+    @telemetry.spanned("closure.advance")
     def _advance_loop_closures(self, drain: bool = False):
         """The loop-closure job as a resumable state machine: each call
         advances it by one phase (RANSAC queued -> gates + refinement queued
@@ -241,11 +264,13 @@ class SlamWrapper:
                         self.is_optimized_graph_available):
                     return
                 tid = self.loop_closure_candidates.pop(0)
-                with self.telemetry.timer("lc_start"):
+                with telemetry.span("closure.start"):
                     self._lc_job = self.place_recognition.start_loop_closure_job(
                         self.submaps.map_to_range_sensor, self.submaps,
                         self.submaps.adjacency, tid.submap_id,
                         self.submaps.active_submap_idx, tid.time)
+                    if self._lc_job is not None:
+                        telemetry.count("closure.jobs_started")
                 if self._lc_job is None:
                     self.num_latest_loop_closure_constraints = 0
                     continue
@@ -253,7 +278,7 @@ class SlamWrapper:
                     return
             if not drain and not self._lc_job.outputs_ready():
                 return
-            with self.telemetry.timer("lc_" + self._lc_job.phase):
+            with telemetry.span(_PHASE_SPANS[self._lc_job.phase]):
                 done = self.place_recognition.advance_loop_closure_job(self._lc_job)
             if done:
                 job, self._lc_job = self._lc_job, None
@@ -268,15 +293,17 @@ class SlamWrapper:
         if not constraints:
             return
         self.n_loop_closures_accepted += len(constraints)
-        timer = self.telemetry.timer
-        with timer("optimization"):
-            with timer("optimization.flush_constraints"):
+        span = telemetry.span
+        with span("optimization.round"):
+            telemetry.count("closure.jobs_with_constraints")
+            telemetry.count("closure.constraints_accepted", len(constraints))
+            with span("optimization.flush_constraints"):
                 self._flush_pending_constraints()
-            with timer("optimization.odometry_constraints"):
+            with span("optimization.odometry_constraints"):
                 odom_constraints = list(self.odometry_constraints)
                 compute_odometry_constraints(self.submaps, odom_constraints)
             opt = self.optimization_problem
-            with timer("optimization.build"):
+            with span("optimization.build"):
                 opt.clear_odometry_constraints()
                 opt.insert_loop_closure_constraints(constraints)
                 opt.insert_odometry_constraints(odom_constraints)
@@ -284,7 +311,7 @@ class SlamWrapper:
             if self.params.mapper.is_dump_submaps_to_file_before_and_after_loop_closures:
                 self.dump_submaps("before")
                 opt.dump_to_file(os.path.join(self.folder_path, "poseGraph.json"))
-            with timer("optimization.solve"):
+            with span("optimization.solve"):
                 opt.solve()
             self.last_loop_closure_constraints = constraints
             self.is_optimized_graph_available = True
@@ -331,9 +358,11 @@ class SlamWrapper:
     def process_scan(self, points: np.ndarray, timestamp: float,
                      colors: Optional[np.ndarray] = None) -> bool:
         """Ingest + drain (sequential mode)."""
-        if not self.add_range_scan(points, timestamp, colors=colors):
-            return False
-        return self.process_queued() > 0
+        telemetry.set_scan(self.next_scan_seq)
+        with telemetry.span("slam_wrapper.scan"):
+            if not self.add_range_scan(points, timestamp, colors=colors):
+                return False
+            return self.process_queued() > 0
 
     def process_scan_pipelined(self, points: np.ndarray, timestamp: float,
                                colors: Optional[np.ndarray] = None) -> bool:
@@ -356,26 +385,29 @@ class SlamWrapper:
         buffer holds, ``MotionCompensation.cpp:32-57``).  With undistortion
         off the two modes agree exactly.  Call ``finish_processing`` before
         reading trajectories or maps."""
-        if not self.add_range_scan(points, timestamp, colors=colors):
-            return False
-        self._odometry_step()
-        measurement = self.mapping_buffer.pop()
-        if measurement is None:
+        telemetry.set_scan(self.next_scan_seq)
+        with telemetry.span("slam_wrapper.scan"):
+            if not self.add_range_scan(points, timestamp, colors=colors):
+                return False
+            self._odometry_step()
+            measurement = self.mapping_buffer.pop()
+            if measurement is None:
+                return True
+            cloud = self._undistort(measurement, "map")
+            processed = None
+            if not self.submaps.get_active_submap().is_empty():
+                processed = self.mapper.preprocess_scan(cloud)
+            self._flush_map_pending()
+            mp, _ = self.mapper.dispatch_range_measurement(
+                cloud, measurement.time, odom_pending=measurement.odom_pending,
+                processed=processed)
+            if mp is not None:
+                self._map_pending = (mp, measurement, cloud)
+            else:
+                self._after_mapping(measurement, cloud)
             return True
-        cloud = self._undistort(measurement, "map")
-        processed = None
-        if not self.submaps.get_active_submap().is_empty():
-            processed = self.mapper.preprocess_scan(cloud)
-        self._flush_map_pending()
-        mp, _ = self.mapper.dispatch_range_measurement(
-            cloud, measurement.time, odom_pending=measurement.odom_pending,
-            processed=processed)
-        if mp is not None:
-            self._map_pending = (mp, measurement, cloud)
-        else:
-            self._after_mapping(measurement, cloud)
-        return True
 
+    @telemetry.spanned("slam_wrapper.finish")
     def finish_processing(self):
         """``finishProcessing`` (:126-166): drain, close the active submap,
         then a final feature / loop-closure / optimisation round."""
@@ -392,7 +424,7 @@ class SlamWrapper:
             self._advance_loop_closures(drain=True)
             self.check_if_optimized_graph_available()
         self._flush_pending_constraints()
-        self.telemetry.maybe_print(force=True)
+        self._maybe_print(force=True)
         print("All submaps finished!")
 
     def warmup(self, scans=None, timestamps=None):

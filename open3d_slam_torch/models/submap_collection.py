@@ -26,6 +26,7 @@ from open3d_slam_torch.utils import pointcloud as pclib, se3
 from open3d_slam_torch.utils.config import MapperParameters
 from open3d_slam_torch.utils.device import to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
 VOXEL_EXPANSION_ADJACENCY_REVISITING = 2.5  # magic.hpp:15
 
@@ -173,6 +174,7 @@ class SubmapCollection:
         else:
             self.create_new_submap(self.map_to_range_sensor)
 
+    @telemetry.spanned("submap.insert")
     def insert_scan(self, raw_scan: PointCloud, preprocessed_scan: PointCloud,
                     map_to_range_sensor: np.ndarray, timestamp: float) -> bool:
         """``insertScan`` (``SubmapCollection.cpp:172-207``)."""

@@ -70,6 +70,7 @@ import torch
 
 from open3d_slam_torch.ops import cuda_build, nn_layout
 from open3d_slam_torch.utils.device import pull_bool
+from open3d_slam_torch.utils.timeutil import telemetry
 
 DONE_CHECK_EVERY = 4
 MODE = "graph"
@@ -192,6 +193,7 @@ class _Graph:
     def replay(self):
         self.graph.replay()
         cuda_build.credit(self.launches)
+        telemetry.count("graph_replays")
 
 
 class _Loop:

@@ -6,7 +6,9 @@ kernels (``ops/cuda_normals.py``), the k-th-neighbour prepass and the
 moments, both reading one layout of the centred support made per call, then
 a closed-form symmetric 3x3 eigensolver.  The port takes this path on
 every device.  (The JAX package's CPU path, a 27-cell hash-grid probe, is not
-ported.)
+ported.)  The three kernel calls and the eigensolve after them are spans
+of the calling layer: ``<layer>.normals.layout``, ``.normals.kth_prepass``,
+``.normals.moments`` and ``.normals.finish``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from open3d_slam_torch.ops import cuda_normals
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
 _EPS = 1e-12
 
@@ -69,18 +72,29 @@ def _finish_normals(points: torch.Tensor, cnt: torch.Tensor, cov: torch.Tensor,
     return torch.where(flip[:, None], -normals, normals)
 
 
+def _moments(q: torch.Tensor, pts: torch.Tensor, mask: torch.Tensor,
+             query_mask: Optional[torch.Tensor], max_nn: int, radius) -> torch.Tensor:
+    """K2's two kernels on one layout: the hybrid radius from the k-th
+    neighbour, then the moments within it."""
+    with telemetry.stage("normals.layout"):
+        layout = cuda_normals.normals_layout(q, pts, mask, query_mask)
+    with telemetry.stage("normals.kth_prepass"):
+        dk2 = cuda_normals.kth_neighbor_d2_within(q, pts, mask, max_nn, radius, layout)
+    r_pp = cuda_normals.hybrid_radius(radius, dk2)
+    with telemetry.stage("normals.moments"):
+        return cuda_normals.radius_moments_at(q, pts, mask, r_pp, layout)
+
+
 def estimate_normals(pc: PointCloud, radius, max_nn: int = 20,
                      orientation_reference: Optional[torch.Tensor] = None) -> PointCloud:
     """Per-point PCA normals from hybrid radius+k neighbourhoods, normalised
     and oriented toward ``orientation_reference`` (default origin)."""
     pts, mask = pc.points, pc.mask
-    layout = cuda_normals.normals_layout(pts, pts, mask)
-    dk2 = cuda_normals.kth_neighbor_d2_within(pts, pts, mask, max_nn, radius, layout)
-    r_pp = cuda_normals.hybrid_radius(radius, dk2)
-    mom = cuda_normals.radius_moments_at(pts, pts, mask, r_pp, layout)
-    cnt, cov = cuda_normals.moments_to_covariance(mom)
-    return pc.with_(normals=_finish_normals(pc.points, cnt, cov,
-                                            orientation_reference))
+    mom = _moments(pts, pts, mask, None, max_nn, radius)
+    with telemetry.stage("normals.finish"):
+        cnt, cov = cuda_normals.moments_to_covariance(mom)
+        return pc.with_(normals=_finish_normals(pc.points, cnt, cov,
+                                                orientation_reference))
 
 
 def estimate_normals_at(queries: PointCloud, support: PointCloud, radius,
@@ -90,13 +104,11 @@ def estimate_normals_at(queries: PointCloud, support: PointCloud, radius,
     ``estimate_normals(support)`` at the query rows when the queries are a
     subset of the support)."""
     q, pts, mask = queries.points, support.points, support.mask
-    layout = cuda_normals.normals_layout(q, pts, mask, queries.mask)
-    dk2 = cuda_normals.kth_neighbor_d2_within(q, pts, mask, max_nn, radius, layout)
-    r_pp = cuda_normals.hybrid_radius(radius, dk2)
-    mom = cuda_normals.radius_moments_at(q, pts, mask, r_pp, layout)
-    cnt, cov = cuda_normals.moments_to_covariance(mom)
-    return queries.with_(normals=_finish_normals(queries.points, cnt, cov,
-                                                 orientation_reference))
+    mom = _moments(q, pts, mask, queries.mask, max_nn, radius)
+    with telemetry.stage("normals.finish"):
+        cnt, cov = cuda_normals.moments_to_covariance(mom)
+        return queries.with_(normals=_finish_normals(queries.points, cnt, cov,
+                                                     orientation_reference))
 
 
 def estimate_covariances(pc: PointCloud, radius, max_nn: int = 20,

@@ -51,6 +51,7 @@ from open3d_slam_torch.ops.gn_graph import GNState
 from open3d_slam_torch.ops.hashgrid import INT32_MAX, HashGrid
 from open3d_slam_torch.utils import collectives, se3
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,14 +176,19 @@ def _summed(out: torch.Tensor, group) -> torch.Tensor:
 def _source_order(source: PointCloud, order: Optional[torch.Tensor]) -> torch.Tensor:
     """The sweep's query order of ``source``: ``order`` when given (the
     Morton order of the same points and mask, e.g. from the layout of the
-    cloud as an earlier target), else made here."""
-    return order if order is not None else nn_layout.query_order(source.points, source.mask)
+    cloud as an earlier target), else made here (the calling layer's
+    ``query_order`` span)."""
+    if order is not None:
+        return order
+    with telemetry.stage("query_order"):
+        return nn_layout.query_order(source.points, source.mask)
 
 
 def _r2(max_dist, device) -> torch.Tensor:
     return torch.full((1, 1), float(max_dist), dtype=torch.float32, device=device) ** 2
 
 
+@telemetry.spanned("gn_loop.gicp")
 def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
                           max_iterations, relative_fitness, relative_rmse,
                           layout=None, group=None) -> RegistrationResult:
@@ -211,6 +217,7 @@ def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
                          relative_fitness, relative_rmse, True, group)
 
 
+@telemetry.spanned("gn_loop.p2l")
 def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dist,
                          max_iterations, relative_fitness, relative_rmse,
                          use_exp_retraction=False, layout=None,
@@ -416,6 +423,7 @@ def _nearest_layout(x: dict) -> nn_layout.TargetLayout:
     return nn_layout.bind(target, x["t_points"], x["t_hashes"])
 
 
+@telemetry.spanned("gn_loop.p2p")
 def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
                                inits: torch.Tensor, max_correspondence_distance,
                                max_iterations: int = 30,

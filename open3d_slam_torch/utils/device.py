@@ -5,6 +5,9 @@ Every blocking device->host transfer on the main path goes through
 that stalls the host until the queued kernels have drained, so the count
 per scan is a metric of its own (the JAX package keeps it to one pull per
 scan plus the Gauss-Newton loop, which ``lax.while_loop`` keeps on device).
+Each pull is also a ``pull`` span of ``utils.timeutil.telemetry`` and a
+``pulls`` count of the span it is made in, so a recording places every
+pull by site.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import subprocess
 from typing import Optional
 
 import torch
+
+from open3d_slam_torch.utils.timeutil import telemetry
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -105,23 +110,25 @@ def to_host(*tensors):
     A ``Prefetched`` argument stands for its tensors, in order; it is read
     from its host buffers once its event has completed."""
     host_syncs.count += 1
+    telemetry.count("pulls")
     if not tensors:
         return ()
-    live = [t for t in tensors if not isinstance(t, Prefetched)]
-    flat = (torch.cat([t.detach().reshape(-1).to(torch.float64)
-                       for t in live]).cpu().numpy() if live else None)
-    out, off = [], 0
-    for t in tensors:
-        if isinstance(t, Prefetched):
-            if t.event is not None:
-                t.event.synchronize()
-            out.extend(h.to(torch.float64).numpy().reshape(s)
-                       for h, s in zip(t.host, t.shapes))
-            continue
-        n = t.numel()
-        out.append(flat[off:off + n].reshape(tuple(t.shape)))
-        off += n
-    return tuple(out)
+    with telemetry.pull():
+        live = [t for t in tensors if not isinstance(t, Prefetched)]
+        flat = (torch.cat([t.detach().reshape(-1).to(torch.float64)
+                           for t in live]).cpu().numpy() if live else None)
+        out, off = [], 0
+        for t in tensors:
+            if isinstance(t, Prefetched):
+                if t.event is not None:
+                    t.event.synchronize()
+                out.extend(h.to(torch.float64).numpy().reshape(s)
+                           for h, s in zip(t.host, t.shapes))
+                continue
+            n = t.numel()
+            out.append(flat[off:off + n].reshape(tuple(t.shape)))
+            off += n
+        return tuple(out)
 
 
 def to_device(a, device, dtype=torch.float32) -> torch.Tensor:
