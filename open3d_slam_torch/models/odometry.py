@@ -21,7 +21,7 @@ import torch
 from open3d_slam_torch.models.buffers import TransformInterpolationBuffer
 from open3d_slam_torch.models.cloud_registration import (
     PreparedCloud, cloud_registration_factory)
-from open3d_slam_torch.ops import croppers, normals as normals_ops, voxel
+from open3d_slam_torch.ops import croppers, gn_graph, normals as normals_ops, voxel
 from open3d_slam_torch.utils import pointcloud as pclib, se3
 from open3d_slam_torch.utils.config import OdometryParameters
 from open3d_slam_torch.utils.device import to_device, to_host
@@ -43,21 +43,17 @@ class UniformScores:
         return torch.rand(n, generator=self.generator, device=self.device)
 
 
-def preprocess_chain(cloud: PointCloud, cropper, radius: float,
-                     draw_scores: Callable[[int], torch.Tensor],
-                     voxel_size: float, out_capacity: int, n_keep: int,
-                     keep_capacity: int, needs_normals: bool,
-                     max_nn: int) -> PointCloud:
-    """crop -> voxelize -> [random downsample -> compact] -> normals
-    (``Odometry.cpp:25-30`` order).  With a downsample, normals are
-    estimated only at the kept points with the FULL voxelized cloud as
-    support, which gives the same planes as estimate-then-downsample.  The
-    crop and the downsampling are the caller's layer's ``downsample`` span."""
+_CHANNELS = ("points", "mask", "normals", "colors")
+
+
+def _chain(cloud: PointCloud, scores: Optional[torch.Tensor], cropper, radius: float,
+           voxel_size: float, out_capacity: int, n_keep: int, keep_capacity: int,
+           needs_normals: bool, max_nn: int) -> PointCloud:
     with telemetry.stage("downsample"):
         cropped = cropper.crop(cloud)
         down = voxel.voxel_downsample(cropped, voxel_size, out_capacity=out_capacity)
         if n_keep > 0:
-            kept = voxel.random_downsample(down, n_keep, draw_scores(out_capacity))
+            kept = voxel.random_downsample(down, n_keep, scores)
             kept = pclib.compact_to(kept, keep_capacity)
     if n_keep > 0:
         if needs_normals:
@@ -66,6 +62,51 @@ def preprocess_chain(cloud: PointCloud, cropper, radius: float,
     if needs_normals:
         down = normals_ops.estimate_normals(down, radius, max_nn=max_nn)
     return down
+
+
+def preprocess_chain(cloud: PointCloud, cropper, radius: float,
+                     draw_scores: Callable[[int], torch.Tensor],
+                     voxel_size: float, out_capacity: int, n_keep: int,
+                     keep_capacity: int, needs_normals: bool,
+                     max_nn: int) -> PointCloud:
+    """crop -> voxelize -> [random downsample -> compact] -> normals
+    (``Odometry.cpp:25-30`` order).  With a downsample, normals are
+    estimated only at the kept points with the FULL voxelized cloud as
+    support, which gives the same planes as estimate-then-downsample.
+
+    The downsample scores are drawn first, eagerly, from the owner's
+    ``draw_scores`` (none without a downsample).  On the card
+    (``gn_graph.MODE == "graph"``) the rest is one CUDA graph per key
+    (``gn_graph.run_program``: the cloud's channels with their shapes,
+    strides and dtypes, the scores', the cropper, every size and radius, the
+    device), replayed on static copies of the cloud and the scores and
+    cloned out; it reads nothing back, and its outputs are the eager chain's
+    bit for bit.  The crop and the downsampling are the caller's layer's
+    ``downsample`` span and the normals its ``normals.*`` spans: on the card
+    they mark the capture only, and a replay counts ``graph_replays`` in the
+    caller's ``preprocess`` span."""
+    scores = draw_scores(out_capacity) if n_keep > 0 else None
+    sizes = (float(radius), voxel_size, out_capacity, n_keep, keep_capacity,
+             needs_normals, max_nn)
+    if not gn_graph.uses_static_buffers(cloud.device):
+        return _chain(cloud, scores, cropper, *sizes)
+    inputs = {c: getattr(cloud, c) for c in _CHANNELS if getattr(cloud, c) is not None}
+    if scores is not None:
+        inputs["scores"] = scores
+    key = ("preprocess", cropper, *sizes, cloud.device,
+           *((k, tuple(v.shape), v.stride(), v.dtype) for k, v in inputs.items()))
+
+    def program(x):
+        def body():
+            out = _chain(PointCloud(x["points"], x["mask"], x.get("normals"), x.get("colors")),
+                         x.get("scores"), cropper, *sizes)
+            return tuple(getattr(out, c) for c in _CHANNELS if getattr(out, c) is not None)
+        return body
+
+    outs = gn_graph.run_program(key, inputs, program)
+    # The chain keeps the cloud's channels and adds normals where it estimates them.
+    present = [c for c in _CHANNELS if c in inputs or (c == "normals" and needs_normals)]
+    return PointCloud(**dict(zip(present, outs)))
 
 
 class OdometryPending:

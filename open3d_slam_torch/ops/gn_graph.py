@@ -50,7 +50,8 @@ streams and retires the side stream (``_Graph``).
 
 A program of fixed length, with no ``done`` to read (the pose-graph solve:
 two LM stages of ``max_iterations`` steps, as the JAX package's
-``lax.scan``s), goes through ``run_program``: static input and output
+``lax.scan``s; the scan preprocess chain, ``odometry.preprocess_chain``),
+goes through ``run_program``: static input and output
 buffers per key, one warm-up run and then one graph of the whole program
 that writes the output buffers, cloned out at each call.
 
@@ -287,15 +288,18 @@ def run(key: Hashable, inputs: Dict[str, torch.Tensor],
 
 class _Program:
     """A fixed-length program on one key's static input and output buffers
-    (the outputs laid out as the first run's): one CUDA graph, after one
-    warm-up run on the side stream whose launches are real and counted, or,
-    without capture, the eager runner.  The graph copies its results into
-    the output buffers, as a loop's chunk does into its state buffers."""
+    (laid out as the first call's inputs and the first run's outputs, so the
+    program sees the strides an eager call's tensors have): one CUDA graph,
+    after one warm-up run on the side stream whose launches are real and
+    counted, or, without capture, the eager runner.  The graph copies its
+    results into the output buffers, as a loop's chunk does into its state
+    buffers."""
 
     def __init__(self, inputs: Dict[str, torch.Tensor],
                  program: Callable[[Dict[str, torch.Tensor]], Callable[[], Tuple]],
                  capture: bool):
-        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        self.inputs = {k: torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
+                                              device=v.device)
                        for k, v in inputs.items()}
         self.load(inputs)
         body = program(self.inputs)
@@ -337,8 +341,9 @@ def run_program(key: Hashable, inputs: Dict[str, torch.Tensor],
                 program: Callable[[Dict[str, torch.Tensor]], Callable[[], Tuple]]
                 ) -> Tuple:
     """A program of fixed length (no ``done`` to read: the pose-graph
-    solve) on ``inputs`` through the static buffers of ``key``: one CUDA
-    graph on the card (``MODE == "graph"``), the eager runner otherwise.
+    solve, the scan preprocess chain) on ``inputs`` through the static
+    buffers of ``key``: one CUDA graph on the card (``MODE == "graph"``),
+    the eager runner otherwise.
     ``program(x)`` builds, on the dict ``x`` of static buffers, a body that
     returns a tuple of tensors; the call returns them cloned out."""
     capture = MODE == "graph"

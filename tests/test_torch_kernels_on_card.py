@@ -27,6 +27,11 @@ made to break a skip that is not exact (targets at r (1 +- 2^-20) from a
 query, tiles of one point just past the gate, negative expansion d2), with
 ties, every target or every query masked; one call is two launches.
 
+The scan preprocess chain (``odometry.preprocess_chain``) replays one CUDA
+graph per key: bit for bit the eager chain's clouds on both of the VLP-16
+configuration's keys, K2's four kernels in one call's graph, and two keys
+captured by a short replay whose poses equal the eager replay's.
+
 Counts (inliers, neighbours) are exact: kernel and plain version test the
 same term-by-term rounded float32 distances.  Float sums are summed in
 another order, so each entry is held at its own scale (see
@@ -1551,3 +1556,167 @@ def test_pose_graph_refused_launch_or_build_raises_on_card(cuda_device, rng, mon
     monkeypatch.setattr(cuda_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc failed"):
         cpg.pg_assemble(blocks, ends, ends, torch.ones(16, **f32), torch.zeros((), **f32))
+
+
+# --- the scan preprocess chain as one CUDA graph per key ------------------------
+
+_VLP16_SCANS = {}
+
+
+def _vlp16_scans(n: int = 8):
+    """``n`` VLP-16 sweeps of the yard circle at 10 Hz (rendered on the host
+    once per process)."""
+    if n not in _VLP16_SCANS:
+        from open3d_slam_torch.io import lidar_sim
+        spec = lidar_sim.SimSequenceSpec(name="preprocess_graph", n_scans=n, seed=0,
+                                         traj_kwargs=dict(radius=12.0, period=24.3))
+        _VLP16_SCANS[n] = lidar_sim.make_sim_sequence(spec, cache_dir="")
+    return _VLP16_SCANS[n]
+
+
+def _vlp16_params():
+    from open3d_slam_torch.utils import config as cfg
+    return cfg.load_parameters_from_file(cfg.config_path("velodyne_puck16.yaml"))
+
+
+def _preprocess_owner(kind, dev):
+    """The configuration's odometry (ratio 1.0, normals of the voxelized
+    cloud) or scan-to-map owner (ratio 0.25, normals at the kept points)."""
+    from open3d_slam_torch.models.odometry import LidarOdometry
+    from open3d_slam_torch.models.scan_to_map_registration import ScanToMapIcp
+    p = _vlp16_params()
+    cap = p.capacities.processed_scan
+    if kind == "odometry":
+        return LidarOdometry(p.odometry, processed_capacity=cap, device=dev)
+    return ScanToMapIcp(p.mapper, processed_capacity=cap, device=dev)
+
+
+def _raw_cloud(points, dev):
+    return tpc.from_numpy(points, capacity=_vlp16_params().capacities.raw_scan, device=dev)
+
+
+def _cloud_channels(pc):
+    return tuple(t for t in (pc.points, pc.mask, pc.normals, pc.colors) if t is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["odometry", "mapper"])
+def test_graphed_preprocess_chain_equals_eager_on_card(cuda_device, monkeypatch, kind):
+    """Four successive scans through each owner's chain, eager and
+    graphed, each owner's generator advancing: the clouds are equal bit for
+    bit, the first graphed call's cloud is not overwritten by the later
+    replays, the eager chain reads nothing back (sync debug mode "error"),
+    nor do the replays, and once captured a replay counts the eager chain's
+    launches.  One key, one graph."""
+    gn_graph.clear()
+    scans = [_raw_cloud(s, cuda_device) for s in _vlp16_scans().scans[:4]]
+    owners = {"eager": _preprocess_owner(kind, cuda_device),
+              "graph": _preprocess_owner(kind, cuda_device)}
+    outs = {"eager": [], "graph": []}
+    launches = {"eager": [], "graph": []}
+    monkeypatch.setattr(gn_graph, "MODE", "eager")
+    _preprocess_owner(kind, cuda_device).preprocess(scans[0])   # builds, tables
+
+    def no_host_read(owner, scan, check):
+        torch.cuda.set_sync_debug_mode("error" if check else "default")
+        try:
+            return owner.preprocess(scan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    for i, scan in enumerate(scans):
+        for mode, owner in owners.items():
+            monkeypatch.setattr(gn_graph, "MODE", mode)
+            # The capture's own synchronisation is torch's, not the chain's.
+            check = i > 0 or mode == "eager"
+            out, n, syncs = _counted(lambda: no_host_read(owner, scan, check))
+            assert syncs == 0
+            outs[mode].append(out)
+            launches[mode].append(n)
+        if i == 0:
+            first = [t.clone() for t in _cloud_channels(outs["graph"][0])]
+    monkeypatch.setattr(gn_graph, "MODE", "graph")
+    for want, got in zip(outs["eager"], outs["graph"]):
+        assert len(_cloud_channels(want)) == len(_cloud_channels(got)) == 3
+        assert all(torch.equal(a, b) for a, b in zip(_cloud_channels(want),
+                                                      _cloud_channels(got)))
+    assert all(torch.equal(a, b) for a, b in zip(first, _cloud_channels(outs["graph"][0])))
+    assert not torch.equal(outs["graph"][0].points, outs["graph"][1].points)
+    assert launches["graph"][1:] == launches["eager"][1:]
+    assert {k for k, _ in launches["eager"][0]} == {"kth_neighbor_d2_within",
+                                                     "radius_moments_at"}
+    assert dict(launches["graph"][0] - launches["eager"][0]) == dict(launches["eager"][0])
+    assert gn_graph.captured() == (1, 1)
+    gn_graph.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["odometry", "mapper"])
+def test_preprocess_chain_graph_holds_k2_sweeps_and_merges_on_card(cuda_device, kind):
+    """One call of the chain, captured as its key's graph is, holds K2's
+    prepass and moments sweeps with their merges, one of each; it reads
+    nothing back (a capture refuses a host read); its replay equals the
+    eager chain."""
+    from open3d_slam_torch.models import odometry
+    gn_graph.clear()
+    owner = _preprocess_owner(kind, cuda_device)
+    sp = owner.params.scan_processing
+    cap = owner.processed_capacity
+    n_keep = int(round(cap * sp.down_sampling_ratio)) if sp.down_sampling_ratio < 1.0 else 0
+    cropper = owner.cropper if kind == "odometry" else owner.map_builder_cropper
+    icp = owner.params.scan_matcher.icp
+    scan = _raw_cloud(_vlp16_scans().scans[0], cuda_device)
+    scores = owner.draw_scores(cap) if n_keep else None
+    args = (cropper, float(icp.max_distance_knn), sp.voxel_size, cap, n_keep,
+            tpc.padded_capacity(max(n_keep, 1)), True, icp.knn)
+    want = _cloud_channels(odometry._chain(scan, scores, *args))
+    names, got = gn_graph.graph_nodes(lambda: _cloud_channels(odometry._chain(scan, scores,
+                                                                              *args)),
+                                      cuda_device)
+    kernels = [n for n in names if not n.startswith("<")]
+    for k2 in ("kth_sweep", "kth_merge", "moments_sweep", "moments_reduce"):
+        assert sum(k2 in n for n in kernels) == 1, (k2, kernels)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    gn_graph.clear()
+
+
+@pytest.mark.cuda
+def test_vlp16_replay_captures_two_preprocess_keys_on_card(cuda_device, monkeypatch):
+    """A short pipelined replay of the VLP-16 configuration captures
+    exactly two preprocess keys (the odometry's and the mapper's), each
+    replayed once a scan under its layer's preprocess span, and gives the
+    eager replay's poses bit for bit."""
+    import collections
+    from open3d_slam_torch.models.slam_wrapper import SlamWrapper
+    from open3d_slam_torch.utils.timeutil import telemetry
+    seq = _vlp16_scans()
+    poses = {}
+    for mode in ("eager", "graph"):
+        gn_graph.clear()
+        monkeypatch.setattr(gn_graph, "MODE", mode)
+        slam = SlamWrapper(_vlp16_params(), device="cuda")
+        telemetry.start_recording()
+        try:
+            for points, ts in zip(seq.scans, seq.timestamps):
+                slam.process_scan_pipelined(points, ts)
+            slam._flush_map_pending()
+        finally:
+            rec = telemetry.stop_recording()
+        poses[mode] = np.stack(slam.get_trajectory()[1])
+        keys = [k for (k, capture), _ in gn_graph._entries.items()
+                if capture and k[0] == "preprocess"]
+        spans = collections.Counter(sp.name for sp in rec.spans)
+        replays = {name: rec.counters.get((name, "graph_replays"), 0)
+                   for name in ("odometry.preprocess", "mapper.preprocess")}
+        assert spans["odometry.preprocess"] == len(seq.scans)
+        assert spans["mapper.preprocess"] >= len(seq.scans) - 2
+        if mode == "eager":
+            assert keys == [] and replays == {"odometry.preprocess": 0,
+                                              "mapper.preprocess": 0}
+        else:
+            cap = _vlp16_params().capacities.processed_scan
+            assert sorted(k[5] for k in keys) == [0, round(cap * 0.25)]
+            assert all(replays[name] == spans[name] for name in replays)
+    monkeypatch.setattr(gn_graph, "MODE", "graph")
+    assert np.array_equal(poses["eager"], poses["graph"])
+    gn_graph.clear()
