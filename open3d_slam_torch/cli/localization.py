@@ -5,9 +5,11 @@ Port of ``open3d_slam_tpu.cli.localization`` (the reference's
 ``SlamMapInitializer`` flow, ``SlamMapInitializer.cpp:51-78`` +
 ``mapping_node.cpp:37-41``): load a PCD map, set the initial transform, run
 with ``is_use_initial_map`` (merging scans only with ``--merge-scans``).
-``--global-init`` localizes the first scan without an initial pose by
-batched multi-start ICP over ``--num-hypotheses`` pose hypotheses
-(``parallel/multi_start.py``).  Runs on ``cuda`` unless ``--device cpu``.
+``--global-init`` localizes the first scan without an initial pose
+(``SlamMapInitializer.relocalize``: batched multi-start ICP over
+``--num-hypotheses`` pose hypotheses, by default
+``capacities.localization_hypotheses``).  Runs on ``cuda`` unless
+``--device cpu``.
 
 Usage:
   python -m open3d_slam_torch.cli.localization --map map.pcd --sequence DIR
@@ -25,8 +27,7 @@ import numpy as np
 from open3d_slam_torch.io import datasets, pcd
 from open3d_slam_torch.models.map_initializer import SlamMapInitializer
 from open3d_slam_torch.models.slam_wrapper import SlamWrapper
-from open3d_slam_torch.parallel import multi_start
-from open3d_slam_torch.utils import config as cfg, pointcloud as pclib
+from open3d_slam_torch.utils import config as cfg
 from open3d_slam_torch.utils.device import resolve_device
 
 
@@ -40,7 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="initial pose (m, rad)")
     ap.add_argument("--global-init", action="store_true",
                     help="batched multi-start ICP global localization")
-    ap.add_argument("--num-hypotheses", type=int, default=1024)
+    ap.add_argument("--num-hypotheses", type=int, default=None,
+                    help="pose hypotheses of --global-init (default: the "
+                         "configuration's capacities.localization_hypotheses)")
     ap.add_argument("--merge-scans", action="store_true",
                     help="keep extending the loaded map")
     ap.add_argument("--interactive-init-scans", type=int, default=0,
@@ -93,15 +96,11 @@ def main(argv=None) -> int:
     seq = datasets.load_sequence(args.sequence)
 
     if args.global_init:
-        scan0 = pclib.from_numpy(seq.scans[0], capacity=params.capacities.processed_scan,
-                                 device=device)
+        n = args.num_hypotheses or params.capacities.localization_hypotheses
         t0 = time.monotonic()
-        T_init, fitness = multi_start.global_localize(
-            scan0, slam.mapper.submaps.get_active_submap().map_cloud,
-            params, num_hypotheses=args.num_hypotheses)
+        _, fitness = initializer.relocalize(seq.scans[0], num_hypotheses=n)
         print(f"global init: fitness {fitness:.3f} in "
-              f"{time.monotonic() - t0:.2f} s over {args.num_hypotheses} hypotheses")
-        slam.set_initial_transform(T_init)
+              f"{time.monotonic() - t0:.2f} s over {n} hypotheses")
     elif args.initial_pose is not None:
         slam.set_initial_transform(pose_from_xyzrpy(*args.initial_pose))
 

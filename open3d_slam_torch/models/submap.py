@@ -79,6 +79,8 @@ class Submap:
         self.map_to_range_sensor = np.asarray(map_to_range_sensor, np.float64)
         T = to_device(self.map_to_range_sensor, self.device)
         if p.is_use_initial_map and self.n_scans_inserted_map == 0:
+            # A loaded map is held whole, at its own capacity if larger.
+            self.map_capacity = max(self.map_capacity, preprocessed_scan.capacity)
             down = voxel.voxel_downsample(preprocessed_scan, p.map_builder.map_voxel_size,
                                           out_capacity=self.map_capacity)
             self.map_cloud = _ensure_normals(down)

@@ -18,9 +18,16 @@ path) is not ported.
 downsamples take their uniform scores from ``draw_scores(key, n)``, keyed by
 the JAX package's ``PRNGKey`` numbers 11, 13 and 12: normal runs use a
 seeded ``torch.Generator`` per key, the tests JAX's own draws.
+
+Each localization is a tree of ``utils.timeutil.telemetry`` spans:
+``relocalize.prep`` (the query's subsamples, the map's hash grids, coarse
+and mid maps, and the hypotheses, with the ``relocalize.hypotheses`` count)
+then ``relocalize.coarse``, ``.rank``, ``.mid``, ``.refine`` and ``.final``,
+under the caller's ``relocalize.query`` (``SlamMapInitializer.relocalize``).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional, Tuple
 
@@ -33,8 +40,9 @@ from open3d_slam_torch.utils import pointcloud as pclib
 from open3d_slam_torch.utils.config import SlamParameters
 from open3d_slam_torch.utils.device import to_device, to_host
 from open3d_slam_torch.utils.pointcloud import PointCloud
+from open3d_slam_torch.utils.timeutil import telemetry
 
-STAGES = ("coarse", "rank", "mid", "refine", "final")
+STAGES = ("prep", "coarse", "rank", "mid", "refine", "final")
 
 
 def make_pose_hypotheses(map_points: np.ndarray, map_mask: np.ndarray,
@@ -63,6 +71,14 @@ def make_pose_hypotheses(map_points: np.ndarray, map_mask: np.ndarray,
     return T[:num_hypotheses]
 
 
+def _voxel_bound(n: int, span: np.ndarray, edge: float) -> int:
+    """The most voxels of edge ``edge`` that ``n`` points whose bounding box
+    spans ``span`` (3,) can fill, padded: no more than the points, nor than
+    the cells their bounding box meets."""
+    cells = float(np.prod(np.floor(span / edge) + 2.0))
+    return pclib.padded_capacity(int(min(n, cells)))
+
+
 class SeededScores:
     """Uniform downsample scores from a ``torch.Generator`` seeded with the
     key: the same key gives the same draws on every call."""
@@ -77,21 +93,29 @@ class SeededScores:
 
 
 class _StageClock:
-    """Wall ms of each funnel stage into ``out`` (when given), each stage
-    ended by a device synchronisation; nothing at all without ``out``."""
+    """Opens and closes the funnel's stage spans (``relocalize.<stage>``).
+    With ``out`` (a dict) each stage is also bracketed by device
+    synchronisations and its wall ms stored under its name; without it no
+    synchronisation is added."""
 
     def __init__(self, out: Optional[dict], device: torch.device):
         self.out, self.device = out, device
-        self.t0 = time.perf_counter()
 
-    def mark(self, name: str):
-        if self.out is None:
-            return
+    def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = (now - self.t0) * 1e3
-        self.t0 = now
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        with telemetry.span("relocalize." + name):
+            if self.out is None:
+                yield
+                return
+            self._sync()
+            t0 = time.perf_counter()
+            yield
+            self._sync()
+            self.out[name] = (time.perf_counter() - t0) * 1e3
 
 
 def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
@@ -101,7 +125,7 @@ def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
                      coarse_corr_dist, mid_corr_dist, max_corr_dist,
                      coarse_iters: int = 10, mid_iters: int = 12,
                      refine_iters: int = 12, top_k: int = 64,
-                     profile: Optional[dict] = None):
+                     profile: Optional[dict] = None, keep: Optional[dict] = None):
     """The multi-resolution funnel (``_batched_localize`` of the JAX
     package, its TPU route):
 
@@ -121,37 +145,50 @@ def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
     ``jax.lax.top_k`` puts the lower index first among equal scores: a
     stable descending sort does the same; ``torch.argmax`` takes the first
     maximum as ``jnp.argmax`` does.  With ``profile`` (a dict) each stage's
-    synchronised wall ms is stored under its name.  Returns (T (4, 4),
-    fitness) as device tensors."""
+    synchronised wall ms is stored under its name.  With ``keep`` (a dict)
+    the stages' outputs are stored there as device tensors, with nothing
+    pulled: "hypotheses", "coarse_T" (the coarse poses), "rank_score" (their
+    scores), "best_idx" (the ``top_k`` taken on) and "mid_T" (their poses
+    after step 3), "refined_T" and "refined_fitness" (the winner of step 4),
+    "final_T" and "final_fitness", and the clouds "scan_small", "scan_mid",
+    "scan_rank" and "scan_full".  Returns (T (4, 4), fitness) as device
+    tensors."""
     clock = _StageClock(profile, inits.device)
-    coarse = reg_ops.batched_icp_point_to_plane(
-        scan_small, coarse_grid, inits, coarse_corr_dist,
-        max_iterations=coarse_iters)
-    clock.mark("coarse")
-    # The map's K4 target arrays and sweep layout, and the rank scan's
-    # order, serve three stages.
-    prepared = cuda_icp.prepare_target(grid.points_sorted, grid.normals_sorted,
-                                       grid.hashes_sorted != hashgrid.INT32_MAX)
-    rank_order = nn_layout.query_order(scan_rank.points, scan_rank.mask)
-    tight = reg_ops.batched_icp_point_to_plane(
-        scan_rank, grid, coarse.transformation, max_corr_dist, max_iterations=0,
-        prepared=prepared, source_order=rank_order)
-    clock.mark("rank")
-    score = tight.fitness - tight.inlier_rmse
-    best_idx = torch.sort(score, descending=True, stable=True).indices[:top_k]
-    mid = reg_ops.batched_icp_point_to_point(
-        scan_mid, mid_grid, coarse.transformation[best_idx], mid_corr_dist,
-        max_iterations=mid_iters)
-    clock.mark("mid")
-    refined = reg_ops.batched_icp_point_to_plane(
-        scan_rank, grid, mid.transformation, max_corr_dist,
-        max_iterations=refine_iters, prepared=prepared, source_order=rank_order)
-    clock.mark("refine")
-    win = torch.argmax(refined.fitness - refined.inlier_rmse)
-    final = reg_ops.icp_point_to_plane(
-        scan_full, grid, refined.transformation[win], max_corr_dist,
-        max_iterations=10, prepared=prepared)
-    clock.mark("final")
+    with clock.stage("coarse"):
+        coarse = reg_ops.batched_icp_point_to_plane(
+            scan_small, coarse_grid, inits, coarse_corr_dist,
+            max_iterations=coarse_iters)
+    with clock.stage("rank"):
+        # The map's K4 target arrays and sweep layout, and the rank scan's
+        # order, serve three stages.
+        prepared = cuda_icp.prepare_target(grid.points_sorted, grid.normals_sorted,
+                                           grid.hashes_sorted != hashgrid.INT32_MAX)
+        rank_order = nn_layout.query_order(scan_rank.points, scan_rank.mask)
+        tight = reg_ops.batched_icp_point_to_plane(
+            scan_rank, grid, coarse.transformation, max_corr_dist, max_iterations=0,
+            prepared=prepared, source_order=rank_order)
+        score = tight.fitness - tight.inlier_rmse
+    with clock.stage("mid"):
+        best_idx = torch.sort(score, descending=True, stable=True).indices[:top_k]
+        mid = reg_ops.batched_icp_point_to_point(
+            scan_mid, mid_grid, coarse.transformation[best_idx], mid_corr_dist,
+            max_iterations=mid_iters)
+    with clock.stage("refine"):
+        refined = reg_ops.batched_icp_point_to_plane(
+            scan_rank, grid, mid.transformation, max_corr_dist,
+            max_iterations=refine_iters, prepared=prepared, source_order=rank_order)
+        win = torch.argmax(refined.fitness - refined.inlier_rmse)
+    with clock.stage("final"):
+        final = reg_ops.icp_point_to_plane(
+            scan_full, grid, refined.transformation[win], max_corr_dist,
+            max_iterations=10, prepared=prepared)
+    if keep is not None:
+        keep.update(hypotheses=inits, coarse_T=coarse.transformation, rank_score=score,
+                    best_idx=best_idx, mid_T=mid.transformation,
+                    refined_T=refined.transformation[win],
+                    refined_fitness=refined.fitness[win], final_T=final.transformation,
+                    final_fitness=final.fitness, scan_small=scan_small, scan_mid=scan_mid,
+                    scan_rank=scan_rank, scan_full=scan_full)
     return final.transformation, final.fitness
 
 
@@ -159,52 +196,68 @@ def global_localize(scan: PointCloud, map_cloud: PointCloud,
                     params: SlamParameters, num_hypotheses: int = 1024,
                     coarse_scan_points: int = 512,
                     draw_scores: Optional[Callable[[int, int], torch.Tensor]] = None,
-                    profile: Optional[dict] = None) -> Tuple[np.ndarray, float]:
-    """Localize ``scan`` in ``map_cloud`` with no initial pose.  Returns
-    (T (4, 4) float64, fitness)."""
+                    profile: Optional[dict] = None,
+                    keep: Optional[dict] = None) -> Tuple[np.ndarray, float]:
+    """Localize ``scan`` in ``map_cloud`` with no initial pose.  ``profile``
+    and ``keep`` as ``batched_localize``'s (``keep`` also gets the stages'
+    correspondence distances, "coarse_corr", "mid_corr" and "max_corr").
+    Returns (T (4, 4) float64, fitness)."""
     dev = scan.device
-    draw_scores = draw_scores or SeededScores(dev)
+    clock = _StageClock(profile, dev)
     sp = params.mapper.scan_processing
     icp = params.mapper.scan_matcher.icp
-    scan_v = voxel.voxel_downsample(scan, max(sp.voxel_size, 1e-3))
+    with clock.stage("prep"):
+        draw_scores = draw_scores or SeededScores(dev)
+        scan_v = voxel.voxel_downsample(scan, max(sp.voxel_size, 1e-3))
 
-    def subsample(n: int, key: int) -> PointCloud:
-        kept = voxel.random_downsample(scan_v, n, draw_scores(key, scan_v.capacity))
-        return pclib.compact_to(kept, pclib.padded_capacity(n))
+        def subsample(n: int, key: int) -> PointCloud:
+            kept = voxel.random_downsample(scan_v, n, draw_scores(key, scan_v.capacity))
+            return pclib.compact_to(kept, pclib.padded_capacity(n))
 
-    scan_small = subsample(coarse_scan_points, 11)
-    scan_mid = subsample(min(1024, scan_v.capacity), 13)
-    scan_rank = subsample(min(2048, scan_v.capacity), 12)
-    m = map_cloud
-    if m.normals is None:
-        m = normals_ops.estimate_normals(m, radius=icp.max_distance_knn,
-                                         max_nn=icp.knn)
-    grid = hashgrid.build(m, cell_size=icp.max_correspondence_distance)
-    pts_all, mask_np = to_host(m.points, m.mask)
-    mask_np = mask_np.astype(bool)
-    pts_np = pts_all.astype(np.float32)[mask_np]
-    inits = make_pose_hypotheses(pts_all.astype(np.float32), mask_np,
-                                 num_hypotheses, z=float(pts_np[:, 2].mean() + 1.0))
-    # Coarse basin: about half the (x, y) seed spacing.
-    extent = float(max(np.ptp(pts_np[:, 0]), np.ptp(pts_np[:, 1])))
-    n_xy = max(1, int(np.sqrt(num_hypotheses / 8)))
-    spacing = extent / max(n_xy - 1, 1)
-    coarse_corr = max(icp.max_correspondence_distance, 0.75 * spacing)
-    mid_corr = max(2.0 * icp.max_correspondence_distance, 2.0)
-    # Coarser maps for the wide-basin stages: the kernel's cost scales with
-    # the map's rows, and the final registration runs at full resolution.
-    coarse_map = normals_ops.estimate_normals(
-        voxel.voxel_downsample(m, max(0.5, float(coarse_corr) / 4.0),
-                               out_capacity=max(m.capacity // 4, 1024)),
-        radius=icp.max_distance_knn, max_nn=icp.knn)
-    coarse_grid = hashgrid.build(coarse_map, cell_size=coarse_corr)
-    mid_map = voxel.voxel_downsample(m, max(0.4, float(mid_corr) / 5.0),
-                                     out_capacity=max(m.capacity // 2, 2048))
-    mid_grid = hashgrid.build(mid_map, cell_size=mid_corr)
+        scan_small = subsample(coarse_scan_points, 11)
+        scan_mid = subsample(min(1024, scan_v.capacity), 13)
+        scan_rank = subsample(min(2048, scan_v.capacity), 12)
+        m = map_cloud
+        if m.normals is None:
+            m = normals_ops.estimate_normals(m, radius=icp.max_distance_knn,
+                                             max_nn=icp.knn)
+        grid = hashgrid.build(m, cell_size=icp.max_correspondence_distance)
+        pts_all, mask_np = to_host(m.points, m.mask)
+        mask_np = mask_np.astype(bool)
+        pts_np = pts_all.astype(np.float32)[mask_np]
+        inits = make_pose_hypotheses(pts_all.astype(np.float32), mask_np,
+                                     num_hypotheses, z=float(pts_np[:, 2].mean() + 1.0))
+        telemetry.count("relocalize.hypotheses", int(inits.shape[0]))
+        # Coarse basin: about half the (x, y) seed spacing.
+        # Column by column: numpy reduces an (n, 3) array along its first
+        # axis ~15 times slower.
+        span = np.array([np.ptp(pts_np[:, k]) for k in range(3)])
+        extent = float(max(span[0], span[1]))
+        n_xy = max(1, int(np.sqrt(num_hypotheses / 8)))
+        spacing = extent / max(n_xy - 1, 1)
+        coarse_corr = max(icp.max_correspondence_distance, 0.75 * spacing)
+        mid_corr = max(2.0 * icp.max_correspondence_distance, 2.0)
+        # Coarser maps for the wide-basin stages: the kernel's cost scales with
+        # the map's rows, and the final registration runs at full resolution.
+        # Each holds every voxel its edge fills (a map held at a capacity of
+        # its own size fills more than the JAX package's quarter or half).
+        coarse_edge = max(0.5, float(coarse_corr) / 4.0)
+        coarse_map = normals_ops.estimate_normals(
+            voxel.voxel_downsample(m, coarse_edge, out_capacity=max(
+                m.capacity // 4, 1024, _voxel_bound(len(pts_np), span, coarse_edge))),
+            radius=icp.max_distance_knn, max_nn=icp.knn)
+        coarse_grid = hashgrid.build(coarse_map, cell_size=coarse_corr)
+        mid_edge = max(0.4, float(mid_corr) / 5.0)
+        mid_map = voxel.voxel_downsample(m, mid_edge, out_capacity=max(
+            m.capacity // 2, 2048, _voxel_bound(len(pts_np), span, mid_edge)))
+        mid_grid = hashgrid.build(mid_map, cell_size=mid_corr)
+    if keep is not None:
+        keep.update(coarse_corr=float(coarse_corr), mid_corr=float(mid_corr),
+                    max_corr=float(icp.max_correspondence_distance))
     T, fitness = batched_localize(
         scan_small, scan_mid, scan_rank, scan_v, coarse_grid, mid_grid, grid,
         to_device(inits, dev), coarse_corr, mid_corr,
         icp.max_correspondence_distance, top_k=min(64, int(inits.shape[0])),
-        profile=profile)
+        profile=profile, keep=keep)
     T, fitness = to_host(T, fitness)
     return np.asarray(T, np.float64), float(fitness)

@@ -58,6 +58,12 @@ class PointCloud:
                            torch.full((), fill, dtype=self.points.dtype, device=self.device))
 
 
+def default_capacity(n: int) -> int:
+    """The capacity ``from_numpy`` gives ``n`` points by default: the next
+    power of two >= n, at least 8."""
+    return max(8, 1 << (n - 1).bit_length())
+
+
 def from_numpy(points: np.ndarray, capacity: Optional[int] = None,
                normals: Optional[np.ndarray] = None,
                colors: Optional[np.ndarray] = None,
@@ -67,7 +73,7 @@ def from_numpy(points: np.ndarray, capacity: Optional[int] = None,
     points = np.asarray(points, dtype=np.float32)
     n = points.shape[0]
     if capacity is None:
-        capacity = max(8, 1 << (n - 1).bit_length())
+        capacity = default_capacity(n)
     if n > capacity:
         raise ValueError(f"{n} points exceed capacity {capacity}")
     pad = capacity - n

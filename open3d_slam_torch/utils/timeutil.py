@@ -8,7 +8,11 @@ count of 100 ns ticks since year 1, and its ``Timer`` stopwatch.
 ``utils.device.host_syncs`` and ``ops.cuda_build.launches`` are.  Code marks
 its stages with ``telemetry.span("<layer>.<stage>")`` (or ``stage``, named
 under the layer of the innermost open span; ``spanned`` and ``staged``
-mark a whole function) and counts events with ``telemetry.count``.  The recorder is in one of three states:
+mark a whole function) and counts events with ``telemetry.count``.  (The
+``relocalize`` layer, multi-start global localization, is
+``relocalize.query`` > ``.prep``, ``.coarse``, ``.rank``, ``.mid``,
+``.refine``, ``.final``, with the count ``relocalize.hypotheses``.)  The
+recorder is in one of three states:
 
   * ``OFF``: a span is one shared no-op context; no clock is read, nothing
     is allocated, no lock is taken;

@@ -184,21 +184,40 @@ mapper:
     icp: {max_correspondence_distance: 1.0}
   is_build_dense_map: false
 """
+# A scan above processed_scan points and a map above submap_points points,
+# both held whole; the hypotheses are the configuration's.
+_GLOBAL_PARAMS_SMALL = """
+capacities: {raw_scan: 1024, processed_scan: 512, submap_points: 1024, map_patch: 1024,
+             localization_hypotheses: 32}
+mapper:
+  scan_processing: {voxel_size: 0.3}
+  scan_matcher:
+    icp: {max_correspondence_distance: 1.0}
+  map_builder: {map_voxel_size: 0.01}
+  is_build_dense_map: false
+"""
 
 
-def test_localization_cli_global_init_on_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("n_map,n_scan,param,argv", [
+    (4096, 1024, _GLOBAL_PARAMS, ["--num-hypotheses", "32"]),
+    (1280, 640, _GLOBAL_PARAMS_SMALL, []),
+], ids=["within_capacities", "above_capacities"])
+def test_localization_cli_global_init_on_cpu(tmp_path, capsys, n_map, n_scan, param, argv):
     """``--global-init``: no initial pose; the first scan is localized by
-    the multi-start funnel in the loaded map, then tracked from there."""
-    map_pts = tdatasets.structured_scene(np.random.default_rng(4), 4096, extent=8.0)
-    scan, T_true = tdatasets.planted_scan(map_pts, np.random.default_rng(101), 1024)
+    the multi-start funnel in the loaded map (``SlamMapInitializer.relocalize``),
+    then tracked from there.  A raw scan is taken at ``raw_scan`` and the
+    map whole, above ``processed_scan`` and ``submap_points``."""
+    map_pts = tdatasets.structured_scene(np.random.default_rng(4), n_map, extent=8.0)
+    scan, T_true = tdatasets.planted_scan(map_pts, np.random.default_rng(101), n_scan)
     pcd.write_pcd(str(tmp_path / "map.pcd"), points=map_pts)
     tdatasets.save_sequence(tdatasets.SyntheticSequence(
         scans=[scan], timestamps=[0.0], ground_truth=[T_true]), str(tmp_path / "seq"))
-    (tmp_path / "p.yaml").write_text(_GLOBAL_PARAMS)
+    (tmp_path / "p.yaml").write_text(param)
     assert tcli.main(["--map", str(tmp_path / "map.pcd"), "--sequence",
                       str(tmp_path / "seq"), "--param", str(tmp_path / "p.yaml"),
-                      "--global-init", "--num-hypotheses", "32", "--device", "cpu"]) == 0
+                      "--global-init", "--device", "cpu"] + argv) == 0
     out = capsys.readouterr().out
+    assert f"loaded map with {n_map} points" in out
     assert "global init: fitness" in out and "over 32 hypotheses" in out
     np.testing.assert_allclose(_pose_lines(out)[0], T_true[:3, 3], atol=0.05)
 
