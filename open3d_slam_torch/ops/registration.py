@@ -428,7 +428,9 @@ def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
                                inits: torch.Tensor, max_correspondence_distance,
                                max_iterations: int = 30,
                                relative_fitness: float = 1e-6,
-                               relative_rmse: float = 1e-6) -> RegistrationResult:
+                               relative_rmse: float = 1e-6,
+                               layout: Optional[nn_layout.TargetLayout] = None
+                               ) -> RegistrationResult:
     """Point-to-point ICP of one source cloud from each of the (B, 4, 4)
     ``inits`` against one target grid: each iteration finds the
     correspondences of every hypothesis in one K3 launch and takes every
@@ -436,14 +438,17 @@ def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
     hypothesis's result is that of ``icp_point_to_point`` from its init
     alone, bit for bit (converged hypotheses freeze; the kernels treat
     hypotheses apart, and the loop's sums and products are taken in orders
-    that do not depend on the batch: ``_row_sum``, ``_apply_left``).  K3's layout of the grid and the
-    Morton order of the untransformed source, which every pose shares, are
-    made once per call.  On the card the iterations are CUDA-graph replays
-    (``gn_graph.run``) on static copies of the inputs, with one counted read
-    of ``done`` per chunk; elsewhere they run eagerly in the same chunks."""
+    that do not depend on the batch: ``_row_sum``, ``_apply_left``).  K3's
+    layout of the grid (``layout``, ``hashgrid.nearest_layout(target_grid)``
+    made here unless given) and the Morton order of the untransformed
+    source, which every pose shares, serve the whole call.  On the card the
+    iterations are CUDA-graph replays (``gn_graph.run``) on static copies of
+    the inputs, with one counted read of ``done`` per chunk; elsewhere they
+    run eagerly in the same chunks."""
     dev = inits.device
     max_dist = float(max_correspondence_distance)
-    layout = hashgrid.nearest_layout(target_grid)
+    if layout is None:
+        layout = hashgrid.nearest_layout(target_grid)
     inputs = dict(inits=inits.to(torch.float32).contiguous(), points=source.points,
                   mask=source.mask,
                   query_order=nn_layout.query_order(source.points, source.mask),

@@ -19,22 +19,29 @@ downsamples take their uniform scores from ``draw_scores(key, n)``, keyed by
 the JAX package's ``PRNGKey`` numbers 11, 13 and 12: normal runs use a
 seeded ``torch.Generator`` per key, the tests JAX's own draws.
 
+What comes of the map alone (its hash grids, the coarse and mid maps, K4's
+targets, K3's layout and the hypotheses) is built by ``prepare_map``; a
+query's own part is ``localize``.  ``global_localize`` builds the products
+for its one call; ``SlamMapInitializer.relocalize`` keeps them for the
+loaded map.
+
 Each localization is a tree of ``utils.timeutil.telemetry`` spans:
-``relocalize.prep`` (the query's subsamples, the map's hash grids, coarse
-and mid maps, and the hypotheses, with the ``relocalize.hypotheses`` count)
-then ``relocalize.coarse``, ``.rank``, ``.mid``, ``.refine`` and ``.final``,
+``relocalize.prep`` (the query's subsamples and, where they are built, the
+map's products, with the ``relocalize.hypotheses`` count) then
+``relocalize.coarse``, ``.rank``, ``.mid``, ``.refine`` and ``.final``,
 under the caller's ``relocalize.query`` (``SlamMapInitializer.relocalize``).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from open3d_slam_torch.ops import cuda_icp, hashgrid, nn_layout, normals as normals_ops, voxel
+from open3d_slam_torch.ops import hashgrid, nn_layout, normals as normals_ops, voxel
 from open3d_slam_torch.ops import registration as reg_ops
 from open3d_slam_torch.utils import pointcloud as pclib
 from open3d_slam_torch.utils.config import SlamParameters
@@ -118,16 +125,86 @@ class _StageClock:
             self.out[name] = (time.perf_counter() - t0) * 1e3
 
 
+@dataclasses.dataclass(frozen=True)
+class MapProducts:
+    """What the funnel needs of a map, made from the map alone
+    (``prepare_map``): the same for every query against that map, and
+    never written by the funnel."""
+
+    grid: hashgrid.HashGrid          # the map (with normals) at max_corr
+    target: tuple                    # K4's target of ``grid`` (rank, refine, final)
+    coarse_grid: hashgrid.HashGrid   # the coarse-voxel map, with K2's normals
+    coarse_target: tuple             # K4's target of ``coarse_grid`` (coarse)
+    mid_grid: hashgrid.HashGrid      # the mid-voxel map
+    mid_layout: nn_layout.TargetLayout   # K3's layout of ``mid_grid`` (mid)
+    hypotheses: torch.Tensor         # (H, 4, 4) float32 on the map's device
+    coarse_corr: float               # the stages' correspondence distances
+    mid_corr: float
+    max_corr: float
+
+
+def map_settings(params: SlamParameters) -> tuple:
+    """Every parameter value ``prepare_map`` reads: the ICP correspondence
+    distance, and K2's neighbour count and radius."""
+    icp = params.mapper.scan_matcher.icp
+    return icp.max_correspondence_distance, icp.knn, icp.max_distance_knn
+
+
+def prepare_map(map_cloud: PointCloud, params: SlamParameters,
+                num_hypotheses: int) -> MapProducts:
+    """The funnel's map-side products of ``map_cloud``: its normals (K2,
+    where it has none) and hash grid at the correspondence distance, the
+    coarse and mid maps and their grids, K4's targets and K3's layout, and
+    ``num_hypotheses`` stratified poses over the map's extent.  One pull of
+    the map to the host (its extent)."""
+    max_corr, knn, radius = map_settings(params)
+    m = map_cloud
+    if m.normals is None:
+        m = normals_ops.estimate_normals(m, radius=radius, max_nn=knn)
+    grid = hashgrid.build(m, cell_size=max_corr)
+    pts_all, mask_np = to_host(m.points, m.mask)
+    mask_np = mask_np.astype(bool)
+    pts_np = pts_all.astype(np.float32)[mask_np]
+    inits = make_pose_hypotheses(pts_all.astype(np.float32), mask_np,
+                                 num_hypotheses, z=float(pts_np[:, 2].mean() + 1.0))
+    # Coarse basin: about half the (x, y) seed spacing.
+    # Column by column: numpy reduces an (n, 3) array along its first
+    # axis ~15 times slower.
+    span = np.array([np.ptp(pts_np[:, k]) for k in range(3)])
+    extent = float(max(span[0], span[1]))
+    n_xy = max(1, int(np.sqrt(num_hypotheses / 8)))
+    spacing = extent / max(n_xy - 1, 1)
+    coarse_corr = max(max_corr, 0.75 * spacing)
+    mid_corr = max(2.0 * max_corr, 2.0)
+    # Coarser maps for the wide-basin stages: the kernel's cost scales with
+    # the map's rows, and the final registration runs at full resolution.
+    # Each holds every voxel its edge fills (a map held at a capacity of
+    # its own size fills more than the JAX package's quarter or half).
+    coarse_edge = max(0.5, float(coarse_corr) / 4.0)
+    coarse_map = normals_ops.estimate_normals(
+        voxel.voxel_downsample(m, coarse_edge, out_capacity=max(
+            m.capacity // 4, 1024, _voxel_bound(len(pts_np), span, coarse_edge))),
+        radius=radius, max_nn=knn)
+    coarse_grid = hashgrid.build(coarse_map, cell_size=coarse_corr)
+    mid_edge = max(0.4, float(mid_corr) / 5.0)
+    mid_map = voxel.voxel_downsample(m, mid_edge, out_capacity=max(
+        m.capacity // 2, 2048, _voxel_bound(len(pts_np), span, mid_edge)))
+    mid_grid = hashgrid.build(mid_map, cell_size=mid_corr)
+    return MapProducts(
+        grid=grid, target=reg_ops.point_to_plane_target(grid), coarse_grid=coarse_grid,
+        coarse_target=reg_ops.point_to_plane_target(coarse_grid), mid_grid=mid_grid,
+        mid_layout=hashgrid.nearest_layout(mid_grid),
+        hypotheses=to_device(inits, map_cloud.device), coarse_corr=coarse_corr,
+        mid_corr=mid_corr, max_corr=max_corr)
+
+
 def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
-                     scan_rank: PointCloud, scan_full: PointCloud,
-                     coarse_grid: hashgrid.HashGrid, mid_grid: hashgrid.HashGrid,
-                     grid: hashgrid.HashGrid, inits: torch.Tensor,
-                     coarse_corr_dist, mid_corr_dist, max_corr_dist,
+                     scan_rank: PointCloud, scan_full: PointCloud, maps: MapProducts,
                      coarse_iters: int = 10, mid_iters: int = 12,
                      refine_iters: int = 12, top_k: int = 64,
                      profile: Optional[dict] = None, keep: Optional[dict] = None):
     """The multi-resolution funnel (``_batched_localize`` of the JAX
-    package, its TPU route):
+    package, its TPU route) from the hypotheses of ``maps``:
 
       1. coarse point-to-plane sweep of ALL hypotheses at about half the
          seed spacing, subsampled scan against a coarse-voxel map (K4);
@@ -153,35 +230,33 @@ def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
     "final_T" and "final_fitness", and the clouds "scan_small", "scan_mid",
     "scan_rank" and "scan_full".  Returns (T (4, 4), fitness) as device
     tensors."""
+    inits = maps.hypotheses
     clock = _StageClock(profile, inits.device)
     with clock.stage("coarse"):
         coarse = reg_ops.batched_icp_point_to_plane(
-            scan_small, coarse_grid, inits, coarse_corr_dist,
-            max_iterations=coarse_iters)
+            scan_small, maps.coarse_grid, inits, maps.coarse_corr,
+            max_iterations=coarse_iters, prepared=maps.coarse_target)
     with clock.stage("rank"):
-        # The map's K4 target arrays and sweep layout, and the rank scan's
-        # order, serve three stages.
-        prepared = cuda_icp.prepare_target(grid.points_sorted, grid.normals_sorted,
-                                           grid.hashes_sorted != hashgrid.INT32_MAX)
+        # The rank scan's order serves three stages.
         rank_order = nn_layout.query_order(scan_rank.points, scan_rank.mask)
         tight = reg_ops.batched_icp_point_to_plane(
-            scan_rank, grid, coarse.transformation, max_corr_dist, max_iterations=0,
-            prepared=prepared, source_order=rank_order)
+            scan_rank, maps.grid, coarse.transformation, maps.max_corr, max_iterations=0,
+            prepared=maps.target, source_order=rank_order)
         score = tight.fitness - tight.inlier_rmse
     with clock.stage("mid"):
         best_idx = torch.sort(score, descending=True, stable=True).indices[:top_k]
         mid = reg_ops.batched_icp_point_to_point(
-            scan_mid, mid_grid, coarse.transformation[best_idx], mid_corr_dist,
-            max_iterations=mid_iters)
+            scan_mid, maps.mid_grid, coarse.transformation[best_idx], maps.mid_corr,
+            max_iterations=mid_iters, layout=maps.mid_layout)
     with clock.stage("refine"):
         refined = reg_ops.batched_icp_point_to_plane(
-            scan_rank, grid, mid.transformation, max_corr_dist,
-            max_iterations=refine_iters, prepared=prepared, source_order=rank_order)
+            scan_rank, maps.grid, mid.transformation, maps.max_corr,
+            max_iterations=refine_iters, prepared=maps.target, source_order=rank_order)
         win = torch.argmax(refined.fitness - refined.inlier_rmse)
     with clock.stage("final"):
         final = reg_ops.icp_point_to_plane(
-            scan_full, grid, refined.transformation[win], max_corr_dist,
-            max_iterations=10, prepared=prepared)
+            scan_full, maps.grid, refined.transformation[win], maps.max_corr,
+            max_iterations=10, prepared=maps.target)
     if keep is not None:
         keep.update(hypotheses=inits, coarse_T=coarse.transformation, rank_score=score,
                     best_idx=best_idx, mid_T=mid.transformation,
@@ -192,20 +267,21 @@ def batched_localize(scan_small: PointCloud, scan_mid: PointCloud,
     return final.transformation, final.fitness
 
 
-def global_localize(scan: PointCloud, map_cloud: PointCloud,
-                    params: SlamParameters, num_hypotheses: int = 1024,
-                    coarse_scan_points: int = 512,
-                    draw_scores: Optional[Callable[[int, int], torch.Tensor]] = None,
-                    profile: Optional[dict] = None,
-                    keep: Optional[dict] = None) -> Tuple[np.ndarray, float]:
-    """Localize ``scan`` in ``map_cloud`` with no initial pose.  ``profile``
-    and ``keep`` as ``batched_localize``'s (``keep`` also gets the stages'
-    correspondence distances, "coarse_corr", "mid_corr" and "max_corr").
-    Returns (T (4, 4) float64, fitness)."""
+def localize(scan: PointCloud, map_products: Callable[[], MapProducts],
+             params: SlamParameters, coarse_scan_points: int = 512,
+             draw_scores: Optional[Callable[[int, int], torch.Tensor]] = None,
+             profile: Optional[dict] = None,
+             keep: Optional[dict] = None) -> Tuple[np.ndarray, float]:
+    """Localize ``scan`` with no initial pose in the map whose products
+    ``map_products()`` returns (a ``prepare_map`` or products kept from
+    one); it is called in the prep stage, so a build is timed there.  The
+    query's own part: its voxel pass and three seeded subsamples, then the
+    funnel.  ``profile`` and ``keep`` as ``batched_localize``'s (``keep``
+    also gets the stages' correspondence distances, "coarse_corr",
+    "mid_corr" and "max_corr").  Returns (T (4, 4) float64, fitness)."""
     dev = scan.device
     clock = _StageClock(profile, dev)
     sp = params.mapper.scan_processing
-    icp = params.mapper.scan_matcher.icp
     with clock.stage("prep"):
         draw_scores = draw_scores or SeededScores(dev)
         scan_v = voxel.voxel_downsample(scan, max(sp.voxel_size, 1e-3))
@@ -217,47 +293,27 @@ def global_localize(scan: PointCloud, map_cloud: PointCloud,
         scan_small = subsample(coarse_scan_points, 11)
         scan_mid = subsample(min(1024, scan_v.capacity), 13)
         scan_rank = subsample(min(2048, scan_v.capacity), 12)
-        m = map_cloud
-        if m.normals is None:
-            m = normals_ops.estimate_normals(m, radius=icp.max_distance_knn,
-                                             max_nn=icp.knn)
-        grid = hashgrid.build(m, cell_size=icp.max_correspondence_distance)
-        pts_all, mask_np = to_host(m.points, m.mask)
-        mask_np = mask_np.astype(bool)
-        pts_np = pts_all.astype(np.float32)[mask_np]
-        inits = make_pose_hypotheses(pts_all.astype(np.float32), mask_np,
-                                     num_hypotheses, z=float(pts_np[:, 2].mean() + 1.0))
-        telemetry.count("relocalize.hypotheses", int(inits.shape[0]))
-        # Coarse basin: about half the (x, y) seed spacing.
-        # Column by column: numpy reduces an (n, 3) array along its first
-        # axis ~15 times slower.
-        span = np.array([np.ptp(pts_np[:, k]) for k in range(3)])
-        extent = float(max(span[0], span[1]))
-        n_xy = max(1, int(np.sqrt(num_hypotheses / 8)))
-        spacing = extent / max(n_xy - 1, 1)
-        coarse_corr = max(icp.max_correspondence_distance, 0.75 * spacing)
-        mid_corr = max(2.0 * icp.max_correspondence_distance, 2.0)
-        # Coarser maps for the wide-basin stages: the kernel's cost scales with
-        # the map's rows, and the final registration runs at full resolution.
-        # Each holds every voxel its edge fills (a map held at a capacity of
-        # its own size fills more than the JAX package's quarter or half).
-        coarse_edge = max(0.5, float(coarse_corr) / 4.0)
-        coarse_map = normals_ops.estimate_normals(
-            voxel.voxel_downsample(m, coarse_edge, out_capacity=max(
-                m.capacity // 4, 1024, _voxel_bound(len(pts_np), span, coarse_edge))),
-            radius=icp.max_distance_knn, max_nn=icp.knn)
-        coarse_grid = hashgrid.build(coarse_map, cell_size=coarse_corr)
-        mid_edge = max(0.4, float(mid_corr) / 5.0)
-        mid_map = voxel.voxel_downsample(m, mid_edge, out_capacity=max(
-            m.capacity // 2, 2048, _voxel_bound(len(pts_np), span, mid_edge)))
-        mid_grid = hashgrid.build(mid_map, cell_size=mid_corr)
+        maps = map_products()
+        n_hyp = int(maps.hypotheses.shape[0])
+        telemetry.count("relocalize.hypotheses", n_hyp)
     if keep is not None:
-        keep.update(coarse_corr=float(coarse_corr), mid_corr=float(mid_corr),
-                    max_corr=float(icp.max_correspondence_distance))
-    T, fitness = batched_localize(
-        scan_small, scan_mid, scan_rank, scan_v, coarse_grid, mid_grid, grid,
-        to_device(inits, dev), coarse_corr, mid_corr,
-        icp.max_correspondence_distance, top_k=min(64, int(inits.shape[0])),
-        profile=profile, keep=keep)
+        keep.update(coarse_corr=float(maps.coarse_corr), mid_corr=float(maps.mid_corr),
+                    max_corr=float(maps.max_corr))
+    T, fitness = batched_localize(scan_small, scan_mid, scan_rank, scan_v, maps,
+                                  top_k=min(64, n_hyp), profile=profile, keep=keep)
     T, fitness = to_host(T, fitness)
     return np.asarray(T, np.float64), float(fitness)
+
+
+def global_localize(scan: PointCloud, map_cloud: PointCloud,
+                    params: SlamParameters, num_hypotheses: int = 1024,
+                    coarse_scan_points: int = 512,
+                    draw_scores: Optional[Callable[[int, int], torch.Tensor]] = None,
+                    profile: Optional[dict] = None,
+                    keep: Optional[dict] = None) -> Tuple[np.ndarray, float]:
+    """Localize ``scan`` in ``map_cloud`` with no initial pose: ``localize``
+    on the map's products built for this call alone (``prepare_map``).
+    ``profile`` and ``keep`` as ``localize``'s.  Returns (T (4, 4) float64,
+    fitness)."""
+    return localize(scan, lambda: prepare_map(map_cloud, params, num_hypotheses), params,
+                    coarse_scan_points, draw_scores, profile, keep)

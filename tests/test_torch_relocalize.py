@@ -8,6 +8,12 @@ against the benchmark's plain reference (``perfbench/reference/relocalize.py``,
 float64, brute-force nearest neighbours), and the spans and counters of one
 relocalization.
 
+Against a loaded map, the funnel's map-side products are built at the
+first query and kept (``SlamMapInitializer``): each query's answer and every
+output it keeps must be bit-equal to ``multi_start.global_localize`` on the
+same map and scan, the kept products must never be written, and a new map or
+a changed setting must rebuild them.
+
 Tolerances against the reference: the rank scores at the port's coarse poses
 within 2 inliers' flip of the rank scan (an inlier within float32 rounding of
 the correspondence distance may flip; measured 5e-8), and the whole funnel's
@@ -16,6 +22,8 @@ the same hypotheses and subsamples (measured 0.8 mm and 0.005 degrees: five
 stages of float32 steps, on map normals from the scene's 5 nearest
 neighbours, which the two estimate apart), its fitness within 2 inliers.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -163,3 +171,172 @@ def test_a_relocalization_is_one_span_tree(relocalized):
     assert counters[("relocalize.prep", "relocalize.hypotheses")] == 32
     assert counters[("relocalize.prep", "pulls")] >= 1
     assert counters[("relocalize.query", "pulls")] == 1      # the pose and fitness
+
+
+# --- the map's products, kept per loaded map ---------------------------------
+
+def _leaves(x, path=""):
+    """(path, value) of every tensor and plain value in ``x``: a tensor, a
+    dataclass (a cloud, a grid, the map's products), a tuple or named tuple
+    (K4's target, a layout and its bound version counters), a dict (what a
+    query keeps) or a plain value."""
+    if isinstance(x, torch.Tensor):
+        yield path, x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _leaves(getattr(x, f.name), f"{path}.{f.name}")
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            yield from _leaves(x[k], f"{path}[{k}]")
+    elif isinstance(x, tuple):
+        for i, v in enumerate(x):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, x
+
+
+def _snapshot(x) -> list:
+    return [(k, v.clone() if isinstance(v, torch.Tensor) else v) for k, v in _leaves(x)]
+
+
+def _assert_bit_equal(a, b):
+    _assert_same_leaves(list(_leaves(a)), list(_leaves(b)))
+
+
+def _assert_same_leaves(la, lb):
+    assert [k for k, _ in la] == [k for k, _ in lb]
+    for (k, u), (_, v) in zip(la, lb):
+        if isinstance(u, torch.Tensor):
+            assert u.dtype == v.dtype and torch.equal(u, v), k
+        else:
+            assert u == v, k
+
+
+def _loaded(map_pts):
+    slam = SlamWrapper(_params(), device="cpu")
+    init = SlamMapInitializer(slam)
+    init.initialize(map_pts)
+    return slam, init
+
+
+def _fresh(slam, scan, num_hypotheses):
+    """``global_localize`` of ``scan`` as ``relocalize`` builds it, on the
+    active submap's map: (T, fitness, keep)."""
+    keep = {}
+    T, fitness = multi_start.global_localize(
+        pclib.from_numpy(scan, capacity=slam.params.capacities.raw_scan),
+        slam.mapper.submaps.get_active_submap().map_cloud, slam.params,
+        num_hypotheses=num_hypotheses, keep=keep)
+    return T, fitness, keep
+
+
+def _prep_counts(recording) -> tuple:
+    """(builds, hits) of the map's products, each counted in the prep stage."""
+    c = recording.counters
+    assert {name for _, name in c if name.startswith("relocalize.map_prep")} <= {
+        name for span, name in c if span == "relocalize.prep"}
+    return (c.get(("relocalize.prep", "relocalize.map_prep_builds"), 0),
+            c.get(("relocalize.prep", "relocalize.map_prep_hits"), 0))
+
+
+@pytest.fixture(scope="module")
+def three_queries():
+    """Three scans relocalized in one loaded map, spans and counters
+    recorded: (wrapper, initializer, [(scan, T, fitness, keep)], the
+    products after the first query and a copy of them then, recording)."""
+    map_pts = _site()[0]
+    slam, init = _loaded(map_pts)
+    queries = []
+    telemetry.start_recording()
+    try:
+        for seed in (101, 102, 103):
+            scan = datasets.planted_scan(map_pts, np.random.default_rng(seed), SCAN_POINTS)[0]
+            keep = {}
+            T, fitness = init.relocalize(scan, keep=keep)
+            queries.append((scan, T, fitness, keep))
+            if seed == 101:
+                first = init._prepared[2]
+                copy = _snapshot(first)
+    finally:
+        rec = telemetry.stop_recording()
+    return slam, init, queries, first, copy, rec
+
+
+def test_relocalize_in_a_loaded_map_is_bit_equal_to_global_localize(three_queries):
+    """Each query's pose, fitness and every output it keeps against a fresh
+    ``global_localize`` on the same map and scan; the kept products are the
+    first query's, unwritten by the three, and equal to a fresh build."""
+    slam, init, queries, first, copy, _ = three_queries
+    for scan, T, fitness, keep in queries:
+        T_f, fitness_f, keep_f = _fresh(slam, scan, CAPACITIES["localization_hypotheses"])
+        assert np.array_equal(T, T_f) and fitness == fitness_f
+        _assert_bit_equal(keep, keep_f)
+    assert init._prepared[2] is first
+    _assert_same_leaves(list(_leaves(first)), copy)
+    _assert_bit_equal(first, multi_start.prepare_map(
+        slam.mapper.submaps.get_active_submap().map_cloud, slam.params,
+        CAPACITIES["localization_hypotheses"]))
+
+
+def test_three_queries_build_the_map_products_once(three_queries):
+    rec = three_queries[-1]
+    assert _prep_counts(rec) == (1, 2)
+    assert rec.counters[("relocalize.prep", "relocalize.hypotheses")] == 3 * 32
+
+
+FEW_HYPOTHESES = 8      # the rebuild cases' hypotheses, unless changed
+
+
+def _initialize_again(slam, init, other):
+    """A second ``initialize``: the cloud goes through the mapper as a scan
+    and, with merging off (localization mode), leaves the map as it is."""
+    init.initialize(other)
+    return FEW_HYPOTHESES
+
+
+def _replace_map(slam, init, other):
+    """A new cloud in the active submap, as a load, a merge or a submap
+    transform assigns one."""
+    sub = slam.mapper.submaps.get_active_submap()
+    sub.map_cloud = sub.map_cloud.with_(
+        points=sub.map_cloud.points + torch.tensor([0.5, -0.3, 0.0]))
+    return FEW_HYPOTHESES
+
+
+def _more_hypotheses(slam, init, other):
+    return 2 * FEW_HYPOTHESES
+
+
+def _wider_correspondences(slam, init, other):
+    slam.params.mapper.scan_matcher.icp.max_correspondence_distance = 1.2
+    return FEW_HYPOTHESES
+
+
+@pytest.mark.parametrize("change, builds", [(_initialize_again, 0), (_replace_map, 1),
+                                            (_more_hypotheses, 1),
+                                            (_wider_correspondences, 1)],
+                         ids=["initialize_again", "map_replaced", "num_hypotheses",
+                              "max_correspondence_distance"])
+def test_a_new_map_or_setting_rebuilds_the_map_products(change, builds):
+    """After a first query, ``change`` (which gives the second query's
+    hypothesis count) then a second query: the products are
+    rebuilt exactly when the map object, the hypothesis count or a setting
+    they are built from changed, and the answer and everything kept are
+    those of a fresh ``global_localize`` on the map now held."""
+    map_pts, scan, _ = _site()
+    slam, init = _loaded(map_pts)
+    init.relocalize(scan, num_hypotheses=FEW_HYPOTHESES)
+    other = datasets.structured_scene(np.random.default_rng(9), MAP_POINTS, extent=8.0)
+    n = change(slam, init, other)
+    scan = datasets.planted_scan(map_pts, np.random.default_rng(102), SCAN_POINTS)[0]
+    keep = {}
+    telemetry.start_recording()
+    try:
+        T, fitness = init.relocalize(scan, num_hypotheses=n, keep=keep)
+    finally:
+        rec = telemetry.stop_recording()
+    assert _prep_counts(rec) == (builds, 1 - builds)
+    T_f, fitness_f, keep_f = _fresh(slam, scan, n)
+    assert np.array_equal(T, T_f) and fitness == fitness_f
+    _assert_bit_equal(keep, keep_f)
+    assert init._prepared[0] is slam.mapper.submaps.get_active_submap().map_cloud
