@@ -77,24 +77,20 @@ def preprocess_chain(cloud: PointCloud, cropper, radius: float,
     The downsample scores are drawn first, eagerly, from the owner's
     ``draw_scores`` (none without a downsample).  On the card
     (``gn_graph.MODE == "graph"``) the rest is one CUDA graph per key
-    (``gn_graph.run_program``: the cloud's channels with their shapes,
-    strides and dtypes, the scores', the cropper, every size and radius, the
-    device), replayed on static copies of the cloud and the scores and
-    cloned out; it reads nothing back, and its outputs are the eager chain's
-    bit for bit.  The crop and the downsampling are the caller's layer's
-    ``downsample`` span and the normals its ``normals.*`` spans: on the card
-    they mark the capture only, and a replay counts ``graph_replays`` in the
-    caller's ``preprocess`` span."""
+    (``gn_graph.run_program``: the cropper, every size and radius, and the
+    layouts of the cloud's channels and the scores), replayed on static
+    copies of the cloud and the scores and cloned out; it reads nothing
+    back, and its outputs are the eager chain's bit for bit.  The crop and
+    the downsampling are the caller's layer's ``downsample`` span and the
+    normals its ``normals.*`` spans: on the card they mark the capture only,
+    and a replay counts ``graph_replays`` in the caller's ``preprocess``
+    span."""
     scores = draw_scores(out_capacity) if n_keep > 0 else None
     sizes = (float(radius), voxel_size, out_capacity, n_keep, keep_capacity,
              needs_normals, max_nn)
-    if not gn_graph.uses_static_buffers(cloud.device):
-        return _chain(cloud, scores, cropper, *sizes)
     inputs = {c: getattr(cloud, c) for c in _CHANNELS if getattr(cloud, c) is not None}
     if scores is not None:
         inputs["scores"] = scores
-    key = ("preprocess", cropper, *sizes, cloud.device,
-           *((k, tuple(v.shape), v.stride(), v.dtype) for k, v in inputs.items()))
 
     def program(x):
         def body():
@@ -103,7 +99,7 @@ def preprocess_chain(cloud: PointCloud, cropper, radius: float,
             return tuple(getattr(out, c) for c in _CHANNELS if getattr(out, c) is not None)
         return body
 
-    outs = gn_graph.run_program(key, inputs, program)
+    outs = gn_graph.run_program("preprocess", (cropper, *sizes), inputs, program)
     # The chain keeps the cloud's channels and adds normals where it estimates them.
     present = [c for c in _CHANNELS if c in inputs or (c == "normals" and needs_normals)]
     return PointCloud(**dict(zip(present, outs)))

@@ -1,4 +1,5 @@
-"""The registration loops kept on the card: CUDA graphs.
+"""The registration loops and the fixed-length programs kept on the card:
+CUDA graphs.
 
 The JAX package runs each ICP loop (``registration._icp_gicp_fused_batch``,
 ``_icp_p2l_fused_batch``, ``icp_point_to_point``) as one ``lax.while_loop``:
@@ -18,54 +19,66 @@ A loop is a state (any ``NamedTuple`` of tensors with a ``done`` field:
 caller builds from a dict of input tensors: ``start()`` gives the first
 state and ``step(state)`` one iteration (``registration._gn_start``,
 ``_gn_iteration``, ``_p2p_program``).  ``drive`` runs them in chunks for
-both paths, so the eager loop (the CPU, a ``group``, ``MODE = "eager"``)
-and the graphs share the iteration's math and read ``done`` after the same
-iterations.
+every path, so the eager loop and the graphs share the iteration's math and
+read ``done`` after the same iterations.  A program of fixed length, with
+no ``done`` to read (the pose-graph solve: two LM stages of
+``max_iterations`` steps, as the JAX package's ``lax.scan``s; the scan
+preprocess chain, ``odometry.preprocess_chain``), is the case of one run:
+its body, which returns a tuple of tensors.
 
-``run`` keeps, per key (everything that fixes the captured work: the loop
-kind, the shapes, the retraction, the device, the sweep's tile and split
-counts, the correspondence distance and the convergence thresholds), static
-buffers for the inputs and the state (laid out as the first start's own
-tensors, so with the strides the eager loop's tensors have) and the graphs
-that read and write them.  A call copies its inputs in (``copy_``), replays
-the start and the chunks, and clones the result out, so the next call
-cannot overwrite a result already returned.
+``run`` (loops) and ``run_program`` (fixed-length programs) are the only
+entries, and they alone decide the path and the key:
+
+- the eager path, on the caller's own tensors: ``MODE == "eager"``, tensors
+  off the card under ``MODE == "graph"``, and a loop called with
+  ``eager=True`` (a sharded loop, which sums over its group on every
+  iteration);
+- else the static buffers of the call's key: ``(name, *consts, device,
+  ((input name, shape, stride, dtype) for each input))``, with ``consts``
+  every constant the caller's program holds (thresholds, retraction, sizes).
+  The shapes and the device fix whatever the kernels plan from them (the
+  sweep's tile and split counts), so no caller keys anything itself.
+
+A key's entry (``_Static``) holds static buffers for the inputs, each laid
+out as the first call's input (``torch.empty_strided`` with its shape and
+strides, so a non-contiguous input keeps its strides), and for the state or
+the outputs, laid out as the first start's own tensors; and its runs, one
+per chunk length (0: the start, or a program's one run), each a CUDA graph
+(``MODE == "graph"``) or an eager runner on the buffers (``MODE ==
+"static"``: the copy-in and clone-out tested on the CPU).  A run copies its
+result into the state buffers.  A call copies its inputs in (``copy_``),
+replays the runs, and clones the result out, so the next call cannot
+overwrite a result already returned.  One call at a time: a key's buffers
+serve every call of that key.
 
 Capture (``_Graph``) runs on a side stream, after one start and one step
-there (the warm-up torch's graph docs prescribe): the kernels' scratch
-(``nn_layout.scratch``, keyed by device and stream) and cuBLAS's workspace
-for that stream exist before capture, so nothing is allocated or filled by
-the graph but its own intermediates.  The warm-up's launches are real and
-counted; the capture's are recorded (``cuda_build.graph_launches``) and
-credited at each replay.  The graph holds the scratch it was captured with,
-which its kernels leave as they found it (keys all ones, tickets zero).
-Capture uses ``capture_error_mode="thread_local"``: the online driver
-registers on its worker thread while the caller's thread copies scans in.
-Even so, a host-to-device copy that another thread issues during a capture
-crashed torch (a segfault at ``capture_end``, on the card's torch 2.11), so
-warm-up and capture hold ``capturing``, which the online driver's ingest
-holds too.  A capture or replay that fails raises; nothing falls back to
-the eager loop.  A failed capture leaves the calling thread on its own
-streams and retires the side stream (``_Graph``).
+there (``_warm_up``, the warm-up torch's graph docs prescribe): the
+kernels' scratch (``nn_layout.scratch``, keyed by device and stream) and
+cuBLAS's workspace for that stream exist before capture, so nothing is
+allocated or filled by the graph but its own intermediates.  The warm-up's
+launches are real and counted; the capture's are recorded
+(``cuda_build.graph_launches``) and credited at each replay.  Each graph
+holds the scratch it was captured with, which its kernels leave as they
+found it (keys all ones, tickets zero), whatever a later, larger call puts
+in its place.  Capture uses ``capture_error_mode="thread_local"``: the
+online driver registers on its worker thread while the caller's thread
+copies scans in.  Even so, a host-to-device copy that another thread
+issues during a capture crashed torch (a segfault at ``capture_end``, on
+the card's torch 2.11), so warm-up and capture hold ``capturing``, which the
+online driver's ingest holds too.  A capture or replay that fails raises;
+nothing falls back to the eager loop, and a key whose capture failed is not
+kept.  A failed capture leaves the calling thread on its own streams and
+retires the side stream (``_Graph``).
 
-A program of fixed length, with no ``done`` to read (the pose-graph solve:
-two LM stages of ``max_iterations`` steps, as the JAX package's
-``lax.scan``s; the scan preprocess chain, ``odometry.preprocess_chain``),
-goes through ``run_program``: static input and output
-buffers per key, one warm-up run and then one graph of the whole program
-that writes the output buffers, cloned out at each call.
-
-``MODE`` selects the path: ``"graph"`` (the default: CUDA tensors replay
-graphs, others run the eager loop), ``"eager"`` (the eager loop everywhere:
-tests and ``chip_smoke.py``'s A/B) or ``"static"`` (the static buffers with
-an eager runner on any device: the copy-in and clone-out tested on the
-CPU).  Nothing on the main path sets it.
+``MODE`` selects the path: ``"graph"`` (the default), ``"eager"`` (tests
+and ``chip_smoke.py``'s A/B) or ``"static"``.  Nothing on the main path
+sets it.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Callable, Dict, Hashable, List, NamedTuple, Tuple
+from typing import Callable, Dict, Hashable, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -76,7 +89,7 @@ from open3d_slam_torch.utils.timeutil import telemetry
 DONE_CHECK_EVERY = 4
 MODE = "graph"
 
-_entries: Dict[Hashable, "_Loop"] = {}
+_entries: Dict[Hashable, "_Static"] = {}
 _lock = threading.Lock()
 # Held while a graph is warmed up and captured; a thread that puts work on
 # the card beside a loop on another thread holds it for that work.
@@ -96,6 +109,7 @@ class GNState(NamedTuple):
 # A loop state: a NamedTuple of tensors with a ``done`` field.
 State = Tuple[torch.Tensor, ...]
 Program = Tuple[Callable[[], State], Callable[[State], State]]
+Inputs = Dict[str, torch.Tensor]
 
 
 def chunk_lengths(max_iterations: int) -> List[int]:
@@ -125,7 +139,7 @@ def drive(start: Callable[[], State], chunk: Callable[[State, int], State],
 
 
 def uses_static_buffers(device: torch.device) -> bool:
-    """Whether a loop without a group on ``device`` goes through ``run``."""
+    """Whether a call on ``device`` goes through a key's static buffers."""
     return MODE == "static" or (MODE == "graph" and device.type == "cuda")
 
 
@@ -136,8 +150,21 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return s
 
 
+def _warm_up(stream: torch.cuda.Stream, fn: Callable[[], object]):
+    """``fn()`` on the side stream ``stream``, after the work the caller's
+    stream holds and before what it takes next: the warm-up before a
+    capture, whose launches are real and counted.  The caller holds
+    ``capturing``."""
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        out = fn()
+    main.wait_stream(stream)
+    return out
+
+
 class _Eager:
-    """A chunk run as it is, on the static buffers."""
+    """A run as it is, on the static buffers."""
 
     def __init__(self, body: Callable[[], None]):
         self.replay = body
@@ -152,7 +179,7 @@ def _retire(stream: torch.cuda.Stream):
 
 
 class _Graph:
-    """A chunk captured into a CUDA graph on the side stream.
+    """A run captured into a CUDA graph on the side stream.
 
     A capture that fails raises from ``capture_end`` inside
     ``torch.cuda.graph.__exit__``, which then never leaves the side stream
@@ -190,6 +217,9 @@ class _Graph:
                 _retire(stream)
                 raise
         self.launches = counts
+        # The kernel scratch the graph was captured with: a later call that
+        # needs more replaces the stream's entry, not these buffers.
+        self.scratch = nn_layout.held_scratch(stream.device, stream.cuda_stream)
 
     def replay(self):
         self.graph.replay()
@@ -197,30 +227,53 @@ class _Graph:
         telemetry.count("graph_replays")
 
 
-class _Loop:
-    """One key's static buffers and the chunks that run on them."""
+def _buffer(t: torch.Tensor) -> torch.Tensor:
+    """A static buffer with the shape, strides, dtype and device of ``t``."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
 
-    def __init__(self, inputs: Dict[str, torch.Tensor],
-                 program: Callable[[Dict[str, torch.Tensor]], Program], capture: bool):
-        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
-                       for k, v in inputs.items()}
+
+def _map(fn: Callable[[torch.Tensor], object], out):
+    """``out`` with ``fn`` applied to every tensor in it (in tuples too)."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, tuple):
+        items = [_map(fn, v) for v in out]
+        return type(out)(*items) if hasattr(out, "_fields") else tuple(items)
+    return out
+
+
+def _device(inputs: Inputs) -> torch.device:
+    return next(iter(inputs.values())).device
+
+
+class _Static:
+    """One key's static buffers and the runs on them.  ``program(x)`` gives
+    ``(start, step)`` on the dict ``x`` of input buffers: a loop's first
+    state and one iteration, or a fixed-length program's body and None."""
+
+    def __init__(self, inputs: Inputs, program: Callable[[Inputs], Program], capture: bool):
+        self.inputs = {k: _buffer(v) for k, v in inputs.items()}
         self.load(inputs)
         self.start, self.step = program(self.inputs)
         self.capture = capture
         self.runs: Dict[int, object] = {}
-        self.stream = self.scratch = None
+        self.stream: Optional[torch.cuda.Stream] = None
         if capture:
-            self.stream = _side_stream(self.inputs["inits"].device)
+            self.stream = _side_stream(_device(self.inputs))
             with capturing:
-                first = self._warm_up()
+                first = _warm_up(self.stream, self._first)
         else:
             first = self.start()
-        # The state's buffers have the layout of the start's own tensors, so
-        # the graphs see the strides the eager loop's tensors have.
-        self.state = type(first)(*(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                                       device=t.device) for t in first))
+        self.state = _map(_buffer, first)
 
-    def load(self, inputs: Dict[str, torch.Tensor]):
+    def _first(self) -> State:
+        """The start, and one step after it where there is one."""
+        first = self.start()
+        if self.step is not None:
+            self.step(first)
+        return first
+
+    def load(self, inputs: Inputs):
         for k, v in inputs.items():
             self.inputs[k].copy_(v)
 
@@ -231,22 +284,9 @@ class _Loop:
                 buf.copy_(v)
         return body
 
-    def _warm_up(self) -> State:
-        """One start and one step on the side stream, on the inputs just
-        loaded, before the first capture; returns the start's state."""
-        main = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            first = self.start()
-            self.step(first)
-        main.wait_stream(self.stream)
-        b, m = self.inputs["inits"].shape[0], self.inputs["points"].shape[-2]
-        self.scratch = nn_layout.scratch(self.stream.device, self.stream.cuda_stream, b, m)
-        return first
-
     def prepare(self, k: int):
-        """The runner of a chunk of ``k`` iterations (0: the start), captured
-        at its first use."""
+        """The runner of a chunk of ``k`` iterations (0: the start),
+        captured at its first use."""
         if k not in self.runs:
             if not self.capture:
                 self.runs[k] = _Eager(self._body(k))
@@ -260,110 +300,63 @@ class _Loop:
         return self.state
 
 
-def run(key: Hashable, inputs: Dict[str, torch.Tensor],
-        program: Callable[[Dict[str, torch.Tensor]], Program],
-        max_iterations: int) -> State:
-    """The loop of ``program`` on ``inputs`` through the static buffers of
-    ``key``: CUDA graphs on the card (``MODE == "graph"``), the eager runner
-    otherwise.  ``inputs`` holds "inits" (B, 4, 4) and "points" (..., M, 3);
-    ``program(x)`` builds ``(start, step)`` on the dict ``x`` of static
-    buffers.  Returns the final state, cloned out of the buffers.  One loop
-    runs at a time: a key's buffers serve every call of that key."""
+def _entry(name: str, consts: tuple, inputs: Inputs,
+           program: Callable[[Inputs], Program], first_runs: Iterable[int]) -> _Static:
+    """The entry of the call's key, loaded with ``inputs``; at the key's
+    first call, made with the runs ``first_runs`` before any replay.  The
+    caller holds ``_lock``."""
     capture = MODE == "graph"
-    key = (key, capture)
+    key = ((name, *consts, _device(inputs),
+            tuple((k, tuple(v.shape), v.stride(), v.dtype) for k, v in inputs.items())),
+           capture)
+    entry = _entries.get(key)
+    if entry is None:
+        entry = _Static(inputs, program, capture)
+        for k in first_runs:
+            entry.prepare(k)
+        _entries[key] = entry
+    else:
+        entry.load(inputs)
+    return entry
+
+
+def run(name: str, consts: tuple, inputs: Inputs, program: Callable[[Inputs], Program],
+        max_iterations: int, eager: bool = False) -> State:
+    """The loop of ``program`` on ``inputs``: ``program(x)`` builds ``(start,
+    step)`` on a dict ``x`` of tensors with the keys of ``inputs``;
+    ``consts`` are the constants it holds besides them.  Returns the final
+    state: on the eager path (``eager``, see the module docstring) the loop
+    on ``inputs`` themselves, else the replays on the static buffers of the
+    call's key, cloned out."""
+    if eager or not uses_static_buffers(_device(inputs)):
+        start, step = program(inputs)
+        return drive(start, lambda s, k: steps(step, s, k), max_iterations)
     with _lock:
-        loop = _entries.get(key)
-        if loop is None:
-            loop = _Loop(inputs, program, capture)
-            # Every chunk this call may need, before any replay; a key whose
-            # capture failed is not kept.
-            for k in (0, *chunk_lengths(max_iterations)):
-                loop.prepare(k)
-            _entries[key] = loop
-        else:
-            loop.load(inputs)
-        state = drive(lambda: loop.run(0), lambda s, k: loop.run(k), max_iterations)
-        return type(state)(*(t.clone() for t in state))
+        loop = _entry(name, consts, inputs, program, (0, *chunk_lengths(max_iterations)))
+        return _map(torch.clone, drive(lambda: loop.run(0), lambda s, k: loop.run(k),
+                                       max_iterations))
 
 
-class _Program:
-    """A fixed-length program on one key's static input and output buffers
-    (laid out as the first call's inputs and the first run's outputs, so the
-    program sees the strides an eager call's tensors have): one CUDA graph,
-    after one warm-up run on the side stream whose launches are real and
-    counted, or, without capture, the eager runner.  The graph copies its
-    results into the output buffers, as a loop's chunk does into its state
-    buffers."""
-
-    def __init__(self, inputs: Dict[str, torch.Tensor],
-                 program: Callable[[Dict[str, torch.Tensor]], Callable[[], Tuple]],
-                 capture: bool):
-        self.inputs = {k: torch.empty_strided(v.shape, v.stride(), dtype=v.dtype,
-                                              device=v.device)
-                       for k, v in inputs.items()}
-        self.load(inputs)
-        body = program(self.inputs)
-        self.capture = capture
-        if capture:
-            stream = _side_stream(next(iter(self.inputs.values())).device)
-            main = torch.cuda.current_stream(stream.device)
-            with capturing:
-                stream.wait_stream(main)
-                with torch.cuda.stream(stream):
-                    first = body()
-                main.wait_stream(stream)
-        else:
-            first = body()
-        self.outputs = tuple(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                                 device=t.device) for t in first)
-
-        def into_outputs():
-            for buf, v in zip(self.outputs, body()):
-                buf.copy_(v)
-
-        if capture:
-            with capturing:
-                run = _Graph(into_outputs, stream)
-        else:
-            run = _Eager(into_outputs)
-        self.runs = {0: run}
-
-    def load(self, inputs: Dict[str, torch.Tensor]):
-        for k, v in inputs.items():
-            self.inputs[k].copy_(v)
-
-    def run(self) -> Tuple:
-        self.runs[0].replay()
-        return self.outputs
-
-
-def run_program(key: Hashable, inputs: Dict[str, torch.Tensor],
-                program: Callable[[Dict[str, torch.Tensor]], Callable[[], Tuple]]
-                ) -> Tuple:
-    """A program of fixed length (no ``done`` to read: the pose-graph
-    solve, the scan preprocess chain) on ``inputs`` through the static
-    buffers of ``key``: one CUDA graph on the card (``MODE == "graph"``),
-    the eager runner otherwise.
-    ``program(x)`` builds, on the dict ``x`` of static buffers, a body that
-    returns a tuple of tensors; the call returns them cloned out."""
-    capture = MODE == "graph"
-    key = (key, capture)
+def run_program(name: str, consts: tuple, inputs: Inputs,
+                program: Callable[[Inputs], Callable[[], Tuple]]) -> Tuple:
+    """A program of fixed length on ``inputs``: ``program(x)`` builds, on a
+    dict ``x`` of tensors with the keys of ``inputs``, a body that returns a
+    tuple of tensors; ``consts`` are the constants it holds besides them.
+    Returns the body's tuple: on the eager path the body run on ``inputs``,
+    else the one run on the static buffers of the call's key (a CUDA
+    graph's replay on the card), cloned out."""
+    if not uses_static_buffers(_device(inputs)):
+        return program(inputs)()
     with _lock:
-        prog = _entries.get(key)
-        if prog is None:
-            # A key whose capture failed is not kept.
-            prog = _Program(inputs, program, capture)
-            _entries[key] = prog
-        else:
-            prog.load(inputs)
-        return tuple(t.clone() for t in prog.run())
+        return _map(torch.clone,
+                    _entry(name, consts, inputs, lambda x: (program(x), None), (0,)).run(0))
 
 
 def captured() -> Tuple[int, int]:
     """(keys, CUDA graphs) captured in this process: the loops' and the
     fixed-length programs'."""
-    loops = [e for e in _entries.values() if e.capture]
-    return len(loops), sum(len(e.runs) for e in loops)
+    graphed = [e for e in _entries.values() if e.capture]
+    return len(graphed), sum(len(e.runs) for e in graphed)
 
 
 def clear():
@@ -428,16 +421,6 @@ def _node_names(graph_handle: int) -> List[str]:
     return names
 
 
-def _clone(out):
-    """``out`` with every tensor in it (in tuples too) cloned."""
-    if isinstance(out, torch.Tensor):
-        return out.clone()
-    if isinstance(out, tuple):
-        items = [_clone(v) for v in out]
-        return type(out)(*items) if hasattr(out, "_fields") else tuple(items)
-    return out
-
-
 def capture(fn: Callable[[], object], device: torch.device,
             keep_graph: bool = False) -> Tuple["_Graph", object]:
     """``fn`` captured into a CUDA graph as the loops capture theirs, holding
@@ -450,11 +433,7 @@ def capture(fn: Callable[[], object], device: torch.device,
     out = {}
     with capturing:
         stream = _side_stream(device)
-        main = torch.cuda.current_stream(device)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
-            fn()
-        main.wait_stream(stream)
+        _warm_up(stream, fn)
         graph = _Graph(lambda: out.setdefault("result", fn()), stream, keep_graph)
     return graph, out["result"]
 
@@ -473,6 +452,6 @@ def graph_nodes(fn: Callable[[], object], device: torch.device) -> Tuple[List[st
         graph, result = capture(fn, device, keep_graph=True)
         names = _node_names(graph.graph.raw_cuda_graph())
         graph.graph.replay()
-        result = _clone(result)
+        result = _map(torch.clone, result)
         torch.cuda.current_stream(device).synchronize()
     return names, result

@@ -41,7 +41,7 @@ itself.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -267,6 +267,12 @@ def scratch(device: torch.device, stream: int, b: int, m: int
         tickets = torch.zeros(max(b, 1024), dtype=torch.int32, device=device)
     _scratch[k] = (keys, tickets)
     return keys, tickets
+
+
+def held_scratch(device: torch.device, stream: int
+                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The scratch ``scratch`` keeps for ``stream`` on ``device``, if any."""
+    return _scratch.get((device, stream))
 
 
 def drop_scratch(device: torch.device, stream: int):

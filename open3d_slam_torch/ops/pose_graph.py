@@ -136,17 +136,12 @@ def optimize(graph: PoseGraphData, max_correspondence_distance: float,
     pruned (E,) bool), as the JAX function.  ``max_correspondence_distance``
     is part of Open3D's option struct but does not enter the line process.
     On the card (``gn_graph.MODE == "graph"``) the solve replays one CUDA
-    graph per key: the capacities, the iterations, the device and the
-    scalars, which the graph holds as constants."""
+    graph per key (``gn_graph.run_program``: the graph's arrays and the
+    scalars, which the CUDA graph holds as constants)."""
     scalars = (float(preference_loop_closure), float(edge_prune_threshold),
                int(reference_node), int(max_iterations), float(damping_init))
-    inputs = _fields(graph)
-    dev = graph.node_poses.device
-    if gn_graph.uses_static_buffers(dev):
-        key = ("pose_graph", graph.node_poses.shape[0], graph.edge_mask.shape[0], dev,
-               *scalars)
-        return gn_graph.run_program(key, inputs, lambda x: lambda: _program(x, *scalars))
-    return _program(inputs, *scalars)
+    return gn_graph.run_program("pose_graph", scalars, _fields(graph),
+                                lambda x: lambda: _program(x, *scalars))
 
 
 def optimize_plain(graph: PoseGraphData, max_correspondence_distance: float,

@@ -27,7 +27,8 @@ it, in rank order (``utils.collectives.gather_sum``, the JAX package's
 ``psum`` over ``axis_name``), so every rank takes the same steps and stops at
 the same iteration.
 
-The loops' iterations on the card, with no ``group``, are replays of CUDA
+Every loop goes through ``gn_graph.run``, which decides its path.  The
+loops' iterations on the card, with no ``group``, are replays of CUDA
 graphs (``ops/gn_graph.py``), the counterpart of the JAX package's
 ``lax.while_loop``: the start and chunks of ``gn_graph.DONE_CHECK_EVERY``
 iterations, with one counted read of ``done`` between chunks.  Converged
@@ -35,8 +36,7 @@ elements freeze (T kept, the iteration count not advanced), so a few extra
 iterations after every element has converged change nothing, and the poses
 and iteration counts are those of a check on every iteration.  On the CPU
 and with a ``group`` the same iteration (``_gn_iteration``, or the
-point-to-point loop's) runs eagerly, in the same chunks
-(``gn_graph.drive``).
+point-to-point loop's) runs eagerly, in the same chunks.
 """
 from __future__ import annotations
 
@@ -123,31 +123,22 @@ def _gauss_newton(kind: str, inputs: dict, make_sweep: Callable,
                   group=None) -> RegistrationResult:
     """The Gauss-Newton loop of both fused loops.  ``inputs`` holds the
     loop's tensors ("inits", "points", "n_src", ..., "r2"), ``layout`` the
-    sweep's; ``make_sweep(x, layout_of)`` builds ``sweep(P)`` on a dict of
-    them with the layout ``layout_of()``.  On the card without ``group`` the
+    sweep's; ``make_sweep(x)`` builds ``sweep(P)`` on a dict of them and of
+    the layout's (``_sweep_layout``).  On the card without ``group`` the
     iterations are CUDA-graph replays on static copies of the inputs
     (``gn_graph.run``), else they run eagerly on the inputs themselves."""
-    def program(x, layout_of):
-        sweep = make_sweep(x, layout_of)
+    def program(x):
+        sweep = make_sweep(x)
         return (lambda: _gn_start(sweep, x["inits"], x["n_src"], exp_retraction),
                 lambda s: _gn_iteration(s, sweep, x["n_src"], exp_retraction,
                                         relative_fitness, relative_rmse))
 
-    dev = inputs["inits"].device
-    if group is None and gn_graph.uses_static_buffers(dev):
-        inputs = {**inputs, **_layout_inputs(layout)}
-        b, m = inputs["inits"].shape[0], inputs["points"].shape[-2]
-        n_tiles = layout.target.boxes.shape[-2]
-        splits = (nn_layout.plan_splits(-(-m // nn_layout.GROUP), b, n_tiles, dev)
-                  if dev.type == "cuda" else 0)
-        key = (kind, exp_retraction, dev, float(max_dist), relative_fitness, relative_rmse,
-               n_tiles, splits, tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
-        state = gn_graph.run(key, inputs, lambda x: program(x, lambda: _static_layout(x)),
-                             max_iterations)
-    else:
-        start, step = program(inputs, lambda: layout)
-        state = gn_graph.drive(start, lambda s, k: gn_graph.steps(step, s, k),
-                               max_iterations)
+    # A group's loop sums the kernel's output over its ranks on every
+    # iteration (``_summed``), which no graph holds: it runs eagerly.
+    state = gn_graph.run(kind, (exp_retraction, float(max_dist), relative_fitness,
+                                relative_rmse),
+                         {**inputs, **_layout_inputs(layout)}, program, max_iterations,
+                         eager=group is not None)
     return RegistrationResult(transformation=state.T, fitness=state.fit,
                               inlier_rmse=state.rmse, num_iterations=state.it)
 
@@ -158,10 +149,10 @@ def _layout_inputs(layout: nn_layout.SweepLayout) -> dict:
             "query_order": layout.query_order}
 
 
-def _static_layout(x: dict) -> nn_layout.SweepLayout:
-    """The sweep layout held in the static buffers ``x``, bound to their
-    target coordinates and validity as they are now (a call's copy-in
-    changes them together)."""
+def _sweep_layout(x: dict) -> nn_layout.SweepLayout:
+    """The sweep layout held in the loop's inputs ``x``, bound to their
+    target coordinates and validity as they are now (a static call's
+    copy-in changes them together)."""
     coords = x["td"] if "td" in x else x["t_t"]
     target = nn_layout.TargetLayout(x["t_pts"], x["t_boxes"], x["t_order"])
     return nn_layout.SweepLayout(nn_layout.bind(target, coords, x["tv"]), x["query_order"])
@@ -203,11 +194,11 @@ def _icp_gicp_fused_batch(points, maskf, n_src, qcov6, td, tv, inits, max_dist,
         layout = nn_layout.layout_for(points.expand(b, m, 3), maskf, td, tv)
     nn_layout.check_layout(layout, b, m, td.shape[-1], points.device, td, tv)
 
-    def make_sweep(x, layout_of):
+    def make_sweep(x):
         def sweep(P):
             pts, qc = cuda_gn_step.gn_apply(P, x["points"], x["qcov6"])
             out = cuda_gicp.gicp_normal_eq(pts, x["maskf"], qc, x["td"], x["tv"], x["r2"],
-                                           None, layout_of())
+                                           None, _sweep_layout(x))
             return _summed(out, group)
         return sweep
 
@@ -234,11 +225,11 @@ def _icp_p2l_fused_batch(points, maskf, n_src, t_t, tn_t, tc, tv, inits, max_dis
         layout = nn_layout.layout_for(points.expand(b, m, 3), maskf, t_t, tv)
     nn_layout.check_layout(layout, b, m, t_t.shape[-1], points.device, t_t, tv)
 
-    def make_sweep(x, layout_of):
+    def make_sweep(x):
         def sweep(P):
             pts, _ = cuda_gn_step.gn_apply(P, x["points"])
             out = cuda_icp.p2l_normal_eq(pts, x["maskf"], x["t_t"], x["tn_t"], x["tc"],
-                                         x["tv"], x["r2"], layout_of())
+                                         x["tv"], x["r2"], _sweep_layout(x))
             return _summed(out, group)
         return sweep
 
@@ -445,7 +436,6 @@ def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
     iterations are CUDA-graph replays (``gn_graph.run``) on static copies of
     the inputs, with one counted read of ``done`` per chunk; elsewhere they
     run eagerly in the same chunks."""
-    dev = inits.device
     max_dist = float(max_correspondence_distance)
     if layout is None:
         layout = hashgrid.nearest_layout(target_grid)
@@ -456,22 +446,9 @@ def batched_icp_point_to_point(source: PointCloud, target_grid: HashGrid,
                   t_grid_order=target_grid.order, t_pts=layout.pts, t_boxes=layout.boxes,
                   t_order=layout.order)
 
-    def program(x):
-        return _p2p_program(x, target_grid.cell_size, max_dist, relative_fitness,
-                            relative_rmse)
-
-    if gn_graph.uses_static_buffers(dev):
-        b, m = inputs["inits"].shape[0], source.points.shape[0]
-        n_tiles = layout.boxes.shape[-2]
-        splits = (nn_layout.plan_splits(-(-m // nn_layout.GROUP), b, n_tiles, dev)
-                  if dev.type == "cuda" else 0)
-        key = ("p2p", dev, max_dist, relative_fitness, relative_rmse, n_tiles, splits,
-               tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
-        state = gn_graph.run(key, inputs, program, max_iterations)
-    else:
-        start, step = program(inputs)
-        state = gn_graph.drive(start, lambda s, k: gn_graph.steps(step, s, k),
-                               max_iterations)
+    consts = (target_grid.cell_size, max_dist, relative_fitness, relative_rmse)
+    state = gn_graph.run("p2p", consts, inputs, lambda x: _p2p_program(x, *consts),
+                         max_iterations)
     return RegistrationResult(transformation=state.T, fitness=state.fit,
                               inlier_rmse=state.rmse, num_iterations=state.it)
 

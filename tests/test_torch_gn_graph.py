@@ -21,9 +21,13 @@ from open3d_slam_tpu.ops import normals as jn, pallas_gicp as jg, pallas_icp as 
 from open3d_slam_tpu.ops import registration as jreg
 from open3d_slam_tpu.utils import pointcloud as jpc, se3 as jse3
 from open3d_slam_torch.ops import cuda_build, cuda_gicp as tg, cuda_icp as ti
-from open3d_slam_torch.ops import cuda_solve6, gn_graph
+from open3d_slam_torch.ops import cuda_solve6, gn_graph, hashgrid
+from open3d_slam_torch.ops import pose_graph as tpg
 from open3d_slam_torch.ops import registration as treg
-from open3d_slam_torch.utils import device as devmod
+from open3d_slam_torch.utils import device as devmod, pointcloud as tpc
+
+from test_torch_pose_graph_kernels import ARGS as PG_ARGS, _torch as pg_torch, random_graph
+from test_torch_preprocess_graph import _owner as preprocess_owner, _scan
 
 N_TGT, N_SRC, MAX_DIST = 512, 128, 0.5
 # Poses the batch starts from: at the answer's neighbourhood and farther,
@@ -151,6 +155,78 @@ def test_static_buffers_leave_an_earlier_result_alone(scene, monkeypatch):
     monkeypatch.setattr(gn_graph, "MODE", "eager")
     for res, sc, it in ((first, scene, 50), (second, moved, 50), (third, scene, 7)):
         assert _same(res, _port("gicp", sc, 4, it)[0])
+    gn_graph.clear()
+
+
+def _registration(kind):
+    """A loop of ``kind`` on the scene: the first call, one with other
+    values of the same signature, one with another batch (other shapes)."""
+    def call(sc, variant):
+        batch = 1 if variant == "other_shape" else 4
+        if variant == "again":
+            sc = dict(sc, src=sc["src"] + np.float32([0.05, 0.0, -0.02]))
+        if kind != "p2p":
+            res, _ = _port(kind, sc, batch, 7)
+        else:
+            T = torch.from_numpy
+            grid = hashgrid.build(tpc.PointCloud(T(sc["tgt"]), T(sc["tmask"])), 0.5)
+            res = treg.batched_icp_point_to_point(
+                tpc.PointCloud(T(sc["src"]), T(sc["smask"])), grid, T(_inits(batch)),
+                MAX_DIST, max_iterations=7)
+        return (res.transformation, res.fitness, res.inlier_rmse, res.num_iterations)
+    return call
+
+
+def _preprocess(sc, variant):
+    """The mapper's scan preprocess chain; a fresh owner draws the same
+    scores every time.  Another shape: the scan padded with invalid rows."""
+    scan = _scan(101 if variant == "again" else 100)
+    if variant == "other_shape":
+        scan = tpc.PointCloud(torch.cat([scan.points, torch.zeros(512, 3)]),
+                              torch.cat([scan.mask, torch.zeros(512, dtype=torch.bool)]))
+    out = preprocess_owner("mapper").preprocess(scan)
+    return (out.points, out.mask, out.normals)
+
+
+def _pose_graph(sc, variant):
+    """The pose-graph solve; another shape: other capacities."""
+    caps = dict(n_cap=24, e_cap=40) if variant == "other_shape" else {}
+    graph = tpg.PoseGraphData(**pg_torch(random_graph(4 if variant == "again" else 3,
+                                                       **caps)))
+    return tpg.optimize(graph, *PG_ARGS, max_iterations=3)
+
+
+# Each caller of the runner, by the name its keys start with.
+_CALLERS = {"gicp": _registration("gicp"), "p2l": _registration("p2l"),
+            "p2p": _registration("p2p"), "preprocess": _preprocess,
+            "pose_graph": _pose_graph}
+
+
+@pytest.mark.parametrize("name", sorted(_CALLERS))
+def test_the_runner_keys_every_caller(scene, monkeypatch, name):
+    """``gn_graph`` alone decides the path and the key of every caller.
+    Under ``MODE = "static"`` calls whose inputs differ only in shape make
+    two keys, each named for its caller, and calls with an equal signature
+    reuse one.  Under ``MODE = "graph"`` CPU tensors run eagerly, make no
+    key, and give the static runner's bits."""
+    call = _CALLERS[name]
+    variants = ("first", "again", "other_shape")
+    monkeypatch.setattr(gn_graph, "MODE", "static")
+    gn_graph.clear()
+    static = {}
+    for v in variants:
+        static[v] = call(scene, v)
+        assert len(gn_graph._entries) == (2 if v == "other_shape" else 1)
+    assert all(torch.equal(a, b) for a, b in zip(call(scene, "first"), static["first"]))
+    assert len(gn_graph._entries) == 2 and gn_graph.captured() == (0, 0)
+    assert {key[0] for key, capture in gn_graph._entries} == {name}
+    assert not any(torch.equal(a, b) for a, b in zip(static["first"][:1], static["again"]))
+    monkeypatch.setattr(gn_graph, "MODE", "graph")
+    gn_graph.clear()
+    for v in variants:
+        got = call(scene, v)
+        assert all(torch.equal(a, b) for a, b in zip(got, static[v])), v
+    assert len(gn_graph._entries) == 0
     gn_graph.clear()
 
 
